@@ -3,19 +3,31 @@
     python3 chip_smoke.py
 
 1. Fails at once without a CUDA card; prints the card's name and power limit.
-2. Builds every CUDA kernel of the staged stereo-VO path from ``csrc/``.
-3. Holds each kernel against its plain PyTorch version on the card at every
-   shape the main path gives it (tile gather K1: exact, it is a copy).
-4. Drives the main path at full size: ``bench.py``'s world (376x1241,
-   40 frames, seed 0, 500 features, 4 KLT levels, 128 disparities, 200
-   RANSAC hypotheses) through ``OdometryPipeline.stage_frames`` and
-   ``run_staged(chunk=13)``, with every kernel's launch count set to 0
-   just before and read just after; each must have launched.
-5. Checks the output: ATE against ground truth < 0.1 m, and on a small
-   world the card agrees with the port's CPU run (plain kernel versions)
-   given the same RANSAC samples.
-6. Times the staged frames/s (median of 3 after the measured run) and each
-   kernel against its plain version.
+2. Builds every CUDA kernel of the ported paths from ``csrc/``, one nvcc per
+   source, all started together, and prints each build's ``-Xptxas -v``.
+3. Holds each kernel against its plain PyTorch version on the card at the
+   shapes its paths give it: the tile gather K1 exactly (it is a copy), the
+   MI joint histogram K2 to 1e-5 absolute (its counts are exact integers;
+   only the final float32 sum rounds, in another order than the plain
+   version's), and K2 of identical patches to their entropy within 1e-4.
+4. Checks two small worlds against the port's CPU run (plain kernel
+   versions) given the same RANSAC samples: stereo VO, and the cross-modal
+   metric-scale session.
+5. Drives each path at full size, with every kernel's launch count set to 0
+   just before and read just after; each kernel of the path must have
+   launched:
+   - staged stereo VO on ``bench.py``'s world (376x1241, 40 frames, seed 0,
+     500 features, 128 disparities, 200 RANSAC hypotheses) through
+     ``OdometryPipeline.run_staged(chunk=13)``: K1; ATE < 0.1 m;
+   - the cross-modal session on the same world with its right images
+     remapped to the second modality (what ``cross_modal=True`` renders),
+     ``CrossModalConfig`` at its defaults, through
+     ``run_cross_modal_staged(chunk=13)``: K1 and K2. Run again with RANSAC
+     seeds 1-4, its median figures over the five seeds are held to the JAX
+     reference's over the same seeds (``tools/jax_cross_modal_reference.py``).
+6. Times each path's staged frames/s (median of 3 after the measured run),
+   counts its stream syncs, and times each kernel against its plain version
+   beside the least time the card could take.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase ends the run with a non-zero exit code.
@@ -27,12 +39,16 @@ import json
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 N_FRAMES = 40
 CHUNK = 13
+N_FEATURES = 500
+N_DISP = 128
 SHAPES = {  # main-path K1 tile shapes (tile_h, tile_w) -> where they come from
     (11, 138): "ZNCC strip, full disparity range",
     (11, 34): "ZNCC strip with disparity prior",
@@ -43,6 +59,25 @@ SHAPES = {  # main-path K1 tile shapes (tile_h, tile_w) -> where they come from
     (22, 22): "KLT tile",
 }
 LEVELS = [(376, 1241), (188, 621), (94, 311), (47, 156)]  # KLT pyramid
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+K2_TOL = 1e-5
+# identical patches against the one-hot entropy, whose float32 terms round
+# elsewhere: the JAX kernel test's tolerance (tests/test_pallas_mi.py)
+ENTROPY_TOL = 1e-4
+# JAX reference on the full-size cross-modal world, RANSAC seeds 0-4
+# (tools/jax_cross_modal_reference.py --seeds 0 1 2 3 4, run on the CPU): all
+# 39 steps succeeded for every seed. The port cannot draw JAX's samples, and
+# the session's last steps are sensitive to them, so the port's figures over
+# the same seeds are held to JAX's medians over them.
+CM_SEEDS = (0, 1, 2, 3, 4)
+JAX_CROSS_MODAL = {
+    "n_success": 39,
+    "scale_err_median": [0.009031951427458947, 0.010752588510512948, 0.007983058691024423,
+                         0.0097925812006, 0.008951634168624933],
+    "ate_m": [0.05914038608939326, 0.06557040163106549, 0.06372868671084349,
+              0.08654515144921493, 0.060980997817120096],
+}
 
 
 def card_line() -> str:
@@ -67,6 +102,23 @@ def toolchain() -> str:
     return f"torch {torch.__version__} (CUDA {torch.version.cuda}); {' '.join(nvcc)}; triton {triton}"
 
 
+def build_kernels() -> None:
+    """One nvcc per kernel source, all started together; prints each
+    build's time and its -Xptxas -v report."""
+    from uasl_motion_estimation_tpu_torch.ops.kernels import _build
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(_build.build_library, (kg.SOURCE, kmi.SOURCE)))
+    kg.GATHER.load()
+    kmi.MI.load()
+    print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        print(open(f"{lib}.log").read().strip())
+
+
 def random_anchors(gen, batch, n, h, w, dev):
     """Anchors over and beyond the image, plus the int32 extremes."""
     ax = torch.randint(-300, w + 300, (batch, n), generator=gen)
@@ -85,15 +137,58 @@ def check_gather(dev) -> float:
     for h, w in LEVELS:
         img = (torch.rand(CHUNK, h, w, generator=gen) * 255).to(dev)
         for th, tw in SHAPES:
-            anc = random_anchors(gen, CHUNK, 500, h, w, dev)
+            anc = random_anchors(gen, CHUNK, N_FEATURES, h, w, dev)
             got = kg.gather_tiles(img, anc, th, tw)
             want = kg.gather_tiles_plain(img, anc, th, tw)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            if err != 0.0 or got.shape != (CHUNK, 500, th, tw):
+            if err != 0.0 or got.shape != (CHUNK, N_FEATURES, th, tw):
                 raise AssertionError(f"K1 differs from plain at {h}x{w} tile {th}x{tw}: {err}")
             worst = max(worst, err)
     return worst
+
+
+def mi_ids(gen, rows, p, bins, dev, sentinel=None):
+    q = torch.randint(0, bins, (rows, p), generator=gen, dtype=torch.int32)
+    if sentinel is not None:  # a few pixels of every third row out of range
+        q[::3, -5:] = sentinel
+    return q.to(dev)
+
+
+def check_mi(dev) -> tuple[float, float]:
+    """K2 vs its plain version: the matcher's shape (13 x 500 left patches,
+    each against 128 candidates) and the scale LM's (rep 1), sentinels 20,
+    25, 31 and 400 in qa, P 81 and 121, bins 20 and 32; identical patches
+    must give the entropy. Returns the largest difference from the plain
+    version and from the entropy."""
+    from uasl_motion_estimation_tpu_torch.ops import similarity as sim
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+    gen = torch.Generator().manual_seed(2)
+    rows = CHUNK * N_FEATURES
+    cases = [(rows, N_DISP, 121, 20, None), (rows, 1, 121, 20, None)]
+    cases += [(rows, rep, p, bins, s) for s in (20, 25, 31, 400)
+              for rep, p, bins in ((N_DISP, 121, 20), (1, 81, 32))]
+    worst = 0.0
+    for a, rep, p, bins, sentinel in cases:
+        qa = mi_ids(gen, a, p, bins, dev, sentinel)
+        qb = mi_ids(gen, a * rep, p, bins, dev)
+        got = kmi.mi_pairs(qa, qb, rep=rep, n_valid=p, bins=bins)
+        want = kmi.mi_pairs_plain(qa, qb, rep, p, bins)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= K2_TOL or got.shape != (a * rep,):
+            raise AssertionError(f"K2 differs from plain at {(a, rep, p, bins, sentinel)}: {err}")
+        worst = max(worst, err)
+    patches = torch.rand(rows, 11, 11, generator=gen).mul(255).to(dev)
+    q = sim.quantise(patches).reshape(rows, -1).contiguous()
+    got = kmi.mi_pairs(q, q)
+    worst = max(worst, float((got - kmi.mi_pairs_plain(q, q, 1, 121, 20)).abs().max()))
+    ent_err = float((got - sim.entropy(patches)).abs().max())
+    if not (worst <= K2_TOL and ent_err <= ENTROPY_TOL):
+        raise AssertionError(f"K2 of identical patches: {worst} from plain, {ent_err} from "
+                             f"their entropy")
+    return worst, ent_err
 
 
 def time_ms(fn, reps=50) -> float:
@@ -109,38 +204,92 @@ def time_ms(fn, reps=50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(kernel, plain, reps=50) -> dict:
+    """Kernel and plain version timed in turns: plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kernel, kernel, plain))
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2), "ms_runs": [k1, k2],
+            "plain_ms_runs": [p1, p2]}
+
+
 def time_gather(dev) -> dict:
     """K1 and plain times at the ZNCC-strip and level-0 KLT-tile shapes,
-    (13, 500) anchors on a (13, 376, 1241) image, kernel and plain in turns."""
+    (13, 500) anchors on a (13, 376, 1241) image. The bound counts the image
+    read once, the anchors read once and the tiles written once."""
     from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
 
     gen = torch.Generator().manual_seed(1)
     img = (torch.rand(CHUNK, 376, 1241, generator=gen) * 255).to(dev)
-    xs = torch.randint(0, 1241, (CHUNK, 500), generator=gen)
-    ys = torch.randint(0, 376, (CHUNK, 500), generator=gen)
+    xs = torch.randint(0, 1241, (CHUNK, N_FEATURES), generator=gen)
+    ys = torch.randint(0, 376, (CHUNK, N_FEATURES), generator=gen)
     anc = torch.stack([xs, ys], -1).to(torch.int32).to(dev)
     out = {}
     for name, (th, tw) in (("zncc_strip", (11, 138)), ("klt_tile", (22, 22))):
-        k1 = time_ms(lambda: kg.gather_tiles(img, anc, th, tw))
-        plain = time_ms(lambda: kg.gather_tiles_plain(img, anc, th, tw))
-        k2 = time_ms(lambda: kg.gather_tiles(img, anc, th, tw))
-        plain2 = time_ms(lambda: kg.gather_tiles_plain(img, anc, th, tw))
-        out[name] = {"shape": [CHUNK, 500, th, tw], "ms": min(k1, k2),
-                     "plain_ms": min(plain, plain2), "ms_runs": [k1, k2],
-                     "plain_ms_runs": [plain, plain2]}
+        r = in_turns(lambda: kg.gather_tiles(img, anc, th, tw),
+                     lambda: kg.gather_tiles_plain(img, anc, th, tw))
+        nbytes = 4 * (img.numel() + anc.numel() + CHUNK * N_FEATURES * th * tw)
+        r.update(shape=[CHUNK, N_FEATURES, th, tw], bytes=nbytes,
+                 bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
+        out[name] = r
     return out
+
+
+def time_mi(dev) -> dict:
+    """K2 and plain times at the MI matcher's shape: one 13-step chunk, 500
+    left patches each against 128 disparity candidates, 11x11 px, 20 bins.
+    The bound counts qa and qb read once and the scores written once, and
+    the float32 operations these ids need: one log2, one multiply and one
+    add per occupied cell and per occupied marginal bin."""
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+    gen = torch.Generator().manual_seed(3)
+    rows, p, bins = CHUNK * N_FEATURES, 121, 20
+    qa = mi_ids(gen, rows, p, bins, dev)
+    qb = mi_ids(gen, rows * N_DISP, p, bins, dev)
+    r = in_turns(lambda: kmi.MI(qa, qb, N_DISP, p, bins),
+                 lambda: kmi.mi_pairs_plain(qa, qb, N_DISP, p, bins), reps=20)
+    idx = qa.long().repeat_interleave(N_DISP, 0) * bins + qb.long()
+    counts = torch.zeros((idx.shape[0], bins * bins), device=dev).scatter_add_(
+        1, idx, torch.ones_like(idx, dtype=torch.float32)).reshape(-1, bins, bins)
+    occupied = int((counts > 0).sum() + (counts.sum(-1) > 0).sum() + (counts.sum(-2) > 0).sum())
+    nbytes = 4 * (qa.numel() + qb.numel() + qb.shape[0])
+    ops = 3 * occupied
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    r.update(shape=[rows, N_DISP, p, bins], bytes=nbytes, ops=ops,
+             bound_ms=1e3 * max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return r
+
+
+def count_syncs(fn) -> int:
+    """Stream syncs that ``fn`` makes (host reads of device values), counted
+    with torch's sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def small_rig():
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    return synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
+                               height=192, width=320)
 
 
 def small_world_agrees(dev):
     """192x320, 8 frames, 256 features: the card against the port's CPU run
     (plain kernel versions), both given the same CPU-drawn RANSAC samples.
     Success flags equal, motions within 1e-3."""
-    from uasl_motion_estimation_tpu_torch._shared import synthetic
     from uasl_motion_estimation_tpu_torch.models import pipeline as tp
     from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
 
-    rig = synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
-                              height=192, width=320)
+    rig = small_rig()
     seq = synthetic.SyntheticStereoSequence(n_frames=8, rig=rig, seed=0)
     frames = [seq.frame(i) for i in range(8)]
     cfg = tp.default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv),
@@ -164,95 +313,233 @@ def small_world_agrees(dev):
     return err
 
 
+def cross_modal_config(rig, **overrides):
+    from uasl_motion_estimation_tpu_torch.models.cross_modal import CrossModalConfig
+    from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
+    from uasl_motion_estimation_tpu_torch.models.scale import ScaleConfig
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+
+    intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
+    return CrossModalConfig(vo=MonoVOParams(intr=intr),
+                            scale=ScaleConfig(intr=intr, baseline=rig.baseline), **overrides)
+
+
+def small_cross_modal_agrees(dev) -> tuple[float, float]:
+    """192x320, 6 frames, seed 3, cross-modal, 256 features, 64 disparities:
+    the card against the port's CPU run with the same CPU-drawn samples.
+    Equal vo_success; scales within 1e-2 relative and rotations within 1e-3
+    (MI is quantised, so a float32 difference in a bilinear patch can move a
+    pixel across a bin edge and nudge the MI-LM's end point)."""
+    from uasl_motion_estimation_tpu_torch.models import cross_modal as tcm
+    from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rig = small_rig()
+    seq = synthetic.SyntheticStereoSequence(n_frames=6, rig=rig, seed=3, cross_modal=True)
+    frames = [seq.frame(i) for i in range(6)]
+    cfg = cross_modal_config(rig, matcher=MatcherConfig(max_disparity=64), max_features=256)
+    cpu_sampler = tcm.make_sampler(0, cfg.vo.n_ransac)
+
+    def sampler(step, valid):
+        return cpu_sampler(step, valid.cpu()).to(valid.device)
+
+    res = {d: tcm.run_cross_modal_staged(frames, cfg, seed=0, chunk=5, device=d,
+                                         sampler=sampler) for d in ("cpu", dev)}
+    a, b = res["cpu"], res[dev]
+    ok_a = [r["success"] for r in a.records]
+    if ok_a != [r["success"] for r in b.records] or not all(ok_a):
+        raise AssertionError(f"cross-modal vo_success differs: {a.records} vs {b.records}")
+    scale_err = float(np.max(np.abs(a.scales - b.scales) / a.scales))
+    rot_err = float(np.abs(a.trajectory[:, :3, :3] - b.trajectory[:, :3, :3]).max())
+    if not (scale_err < 1e-2 and rot_err < 1e-3):
+        raise AssertionError(f"cross-modal card vs CPU: scale {scale_err}, rotation {rot_err}")
+    return scale_err, rot_err
+
+
+def timed_runs(run, n=3) -> list[float]:
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()  # ends in a device->host copy
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
-    from uasl_motion_estimation_tpu_torch._shared import metrics, synthetic
+    from uasl_motion_estimation_tpu_torch.models.cross_modal import run_cross_modal_staged
     from uasl_motion_estimation_tpu_torch.models.pipeline import (
         OdometryPipeline, default_config)
     from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
-    from uasl_motion_estimation_tpu_torch.ops.kernels import _build
     from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+    from uasl_motion_estimation_tpu_torch.utils import metrics, synthetic
 
     card = card_line()
     print(card, flush=True)
     print(f"toolchain: {toolchain()}; python {sys.version.split()[0]}")
     dev = torch.device("cuda:0")
+    build_kernels()
 
-    t0 = time.perf_counter()
-    lib = _build.build_library(kg.SOURCE)
-    kg.GATHER.load()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    print(open(f"{lib}.log").read().strip())
-
-    max_err = check_gather(dev)
-    print(f"K1 == plain at {len(SHAPES)} tile shapes x {len(LEVELS)} levels, max abs err {max_err}")
+    k1_err = check_gather(dev)
+    print(f"K1 == plain at {len(SHAPES)} tile shapes x {len(LEVELS)} levels, max abs err {k1_err}")
+    k2_err, ent_err = check_mi(dev)
+    print(f"K2 vs plain at the matcher and scale shapes, sentinels 20/25/31/400, P 81/121, "
+          f"bins 20/32: max abs err {k2_err:.3g} (tolerance {K2_TOL}); identical patches "
+          f"vs their entropy: {ent_err:.3g} (tolerance {ENTROPY_TOL})")
 
     small_err = small_world_agrees(dev)
-    print(f"small world: card vs CPU max motion difference {small_err:.3g}")
+    print(f"small stereo world: card vs CPU max motion difference {small_err:.3g}")
+    cm_scale_err, cm_rot_err = small_cross_modal_agrees(dev)
+    print(f"small cross-modal world: card vs CPU max relative scale difference "
+          f"{cm_scale_err:.3g}, max rotation difference {cm_rot_err:.3g}", flush=True)
 
     t0 = time.perf_counter()
     rig = synthetic.CameraRig()
     seq = synthetic.SyntheticStereoSequence(n_frames=N_FRAMES, rig=rig, seed=0)
     frames = [seq.frame(i) for i in range(N_FRAMES)]
-    print(f"rendered {N_FRAMES} frames {rig.height}x{rig.width} in {time.perf_counter() - t0:.1f} s")
+    print(f"rendered {N_FRAMES} frames {rig.height}x{rig.width} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gt = seq.gt_positions()
 
+    # --- stereo VO path ---
     cfg = default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), rig.baseline)
     log = metrics.MetricsLogger()
     pipe = OdometryPipeline(cfg, seed=0, device=dev, logger=log)
     ls, rs = pipe.stage_frames(frames)
 
-    kg.GATHER.launches = 0
+    kg.GATHER.launches = kmi.MI.launches = 0
     t0 = time.perf_counter()
     traj = pipe.run_staged(ls, rs, chunk=CHUNK)
     first_s = time.perf_counter() - t0
-    launches = kg.GATHER.launches
-    if launches <= 0:
-        raise AssertionError("the main path never launched K1")
+    stereo_launches = {"gather_tiles": kg.GATHER.launches, "mi_hist": kmi.MI.launches}
+    if stereo_launches["gather_tiles"] <= 0:
+        raise AssertionError("the stereo path never launched K1")
     if traj.shape != (N_FRAMES, 4, 4) or not np.isfinite(traj).all():
         raise AssertionError(f"bad trajectory: shape {traj.shape}")
-    ate = metrics.ate_rmse(traj[:, :3, 3], seq.gt_positions())
+    ate = metrics.ate_rmse(traj[:, :3, 3], gt)
     n_ok = sum(bool(r["success"]) for r in log.records)
     inliers = [r["n_inliers"] for r in log.records]
-    print(f"main path: K1 launches {launches}, first run {first_s:.3f} s, "
+    print(f"stereo path: launches {stereo_launches}, first run {first_s:.3f} s, "
           f"ATE {ate:.5f} m (JAX reference 0.0379 m), successful steps {n_ok}/{N_FRAMES - 1}, "
           f"inliers min {min(inliers)} median {int(np.median(inliers))}")
     if not ate < 0.1:
         raise AssertionError(f"ATE {ate} m >= 0.1 m")
 
     pipe.logger = None
-    times = []
-    for _ in range(3):
-        pipe.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        traj_rep = pipe.run_staged(ls, rs, chunk=CHUNK)  # ends in a device->host copy
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    fps = (N_FRAMES - 1) / float(np.median(times))
-    rep_ate = metrics.ate_rmse(traj_rep[:, :3, 3], seq.gt_positions())
-    print(f"staged frames/s {fps:.2f} (median of {times}, chunk {CHUNK}); "
-          f"repeat ATE {rep_ate:.5f} m; card {card}")
 
+    def stereo_run():
+        pipe.reset()
+        return pipe.run_staged(ls, rs, chunk=CHUNK)
+
+    times = timed_runs(stereo_run)
+    stereo_syncs = count_syncs(stereo_run)
+    print(f"stereo staged frames/s {(N_FRAMES - 1) / float(np.median(times)):.2f} "
+          f"(median of {times}, chunk {CHUNK}); {stereo_syncs} stream syncs per run; "
+          f"card {card}", flush=True)
+
+    # --- cross-modal metric-scale path: the same world, its right images in
+    # the second modality (the remap SyntheticStereoSequence applies with
+    # cross_modal=True) ---
+    cm_cfg = cross_modal_config(rig)
+    rs_cm = np.stack([255.0 * (1.0 - (f[1] / 255.0) ** 0.7) for f in frames])
+    staged = (ls, torch.from_numpy(np.clip(rs_cm, 0, 255).astype(np.uint8)).to(dev))
+    torch.cuda.synchronize()
+
+    kg.GATHER.launches = kmi.MI.launches = 0
+    t0 = time.perf_counter()
+    res = run_cross_modal_staged(staged, cm_cfg, seed=0, chunk=CHUNK, device=dev)
+    first_s = time.perf_counter() - t0
+    cm_launches = {"gather_tiles": kg.GATHER.launches, "mi_hist": kmi.MI.launches}
+    if min(cm_launches.values()) <= 0:
+        raise AssertionError(f"the cross-modal path skipped a kernel: {cm_launches}")
+    print(f"cross-modal path: launches {cm_launches}, first run {first_s:.3f} s")
+    gt_speed = np.linalg.norm(np.diff(gt, axis=0), axis=1)
+    jax_ref = JAX_CROSS_MODAL
+    figures = []
+    for seed in CM_SEEDS:
+        if seed != CM_SEEDS[0]:
+            res = run_cross_modal_staged(staged, cm_cfg, seed=seed, chunk=CHUNK, device=dev)
+        if res.trajectory.shape != (N_FRAMES, 4, 4) or not np.isfinite(res.trajectory).all():
+            raise AssertionError(f"bad cross-modal trajectory: shape {res.trajectory.shape}")
+        scale_err = np.abs(res.scales - gt_speed) / gt_speed
+        figures.append((sum(r["success"] for r in res.records), float(np.median(scale_err)),
+                        float(scale_err.max()), metrics.ate_rmse(res.trajectory[:, :3, 3], gt)))
+        print(f"cross-modal seed {seed}: successful steps {figures[-1][0]}/{N_FRAMES - 1}, "
+              f"scale error median {figures[-1][1]:.5f} max {figures[-1][2]:.5f}, "
+              f"ATE {figures[-1][3]:.5f} m; per-step scale errors "
+              f"{np.round(scale_err, 4).tolist()}")
+    cm_ok = min(f[0] for f in figures)
+    med_err = float(np.median([f[1] for f in figures]))
+    cm_ate = float(np.median([f[3] for f in figures]))
+    jax_med, jax_ate = (float(np.median(jax_ref[k])) for k in ("scale_err_median", "ate_m"))
+    print(f"cross-modal over seeds {list(CM_SEEDS)}: fewest successful steps {cm_ok} "
+          f"(JAX {jax_ref['n_success']}), median scale error {med_err:.5f} (JAX {jax_med:.5f}), "
+          f"median ATE {cm_ate:.5f} m (JAX {jax_ate:.5f} m)")
+    if cm_ok < jax_ref["n_success"]:
+        raise AssertionError(f"{cm_ok} steps succeeded, JAX {jax_ref['n_success']}")
+    if not med_err < max(0.02, 1.5 * jax_med):
+        raise AssertionError(f"median scale error {med_err}")
+    if not cm_ate <= 1.5 * jax_ate:
+        raise AssertionError(f"cross-modal median ATE {cm_ate} m > 1.5 x JAX's {jax_ate} m")
+
+    def cm_run():
+        return run_cross_modal_staged(staged, cm_cfg, seed=0, chunk=CHUNK, device=dev)
+
+    times = timed_runs(cm_run)
+    cm_syncs = count_syncs(cm_run)
+    print(f"cross-modal staged frames/s {(N_FRAMES - 1) / float(np.median(times)):.2f} "
+          f"(median of {times}, chunk {CHUNK}); {cm_syncs} stream syncs per run; "
+          f"card {card}", flush=True)
+
+    # --- kernel timings ---
     tg = time_gather(dev)
     for name, r in tg.items():
         print(f"K1 {name} {r['shape']}: kernel {r['ms']:.4f} ms (runs {r['ms_runs']}), "
-              f"plain {r['plain_ms']:.4f} ms (runs {r['plain_ms_runs']}); card {card}")
+              f"plain {r['plain_ms']:.4f} ms (runs {r['plain_ms_runs']}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB); card {card}")
+    tm = time_mi(dev)
+    print(f"K2 matcher {tm['shape']}: kernel {tm['ms']:.4f} ms (runs {tm['ms_runs']}), "
+          f"plain {tm['plain_ms']:.4f} ms (runs {tm['plain_ms_runs']}), bound "
+          f"{tm['bound_ms']:.4f} ms by {tm['bound_by']} ({tm['bytes'] / 1e6:.1f} MB, "
+          f"{tm['ops']:.3g} ops); card {card}")
 
+    strip = tg["zncc_strip"]
     print(json.dumps({"kernels": [{
         "name": "gather_tiles",
         "route": "cuda",
         "source": "uasl_motion_estimation_tpu_torch/csrc/gather_tiles.cu",
         "replaces": "uasl_motion_estimation_tpu/ops/pallas/gather.py:37",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": tg["zncc_strip"]["ms"],
-        "plain_ms": tg["zncc_strip"]["plain_ms"],
+        "launches": stereo_launches["gather_tiles"],
+        "launches_by_path": {"stereo": stereo_launches["gather_tiles"],
+                             "cross_modal": cm_launches["gather_tiles"]},
+        "max_abs_err": k1_err,
+        "ms": strip["ms"],
+        "plain_ms": strip["plain_ms"],
+        "bound_ms": strip["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "mi_hist",
+        "route": "cuda",
+        "source": "uasl_motion_estimation_tpu_torch/csrc/mi_hist.cu",
+        "replaces": "uasl_motion_estimation_tpu/ops/pallas/mi.py:34",
+        "launches": cm_launches["mi_hist"],
+        "launches_by_path": {"stereo": stereo_launches["mi_hist"],
+                             "cross_modal": cm_launches["mi_hist"]},
+        "max_abs_err": k2_err,
+        "ms": tm["ms"],
+        "plain_ms": tm["plain_ms"],
+        "bound_ms": tm["bound_ms"],
+        "bound_by": tm["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

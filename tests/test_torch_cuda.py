@@ -1,5 +1,7 @@
 """Tests of the port that need a CUDA card (marker ``cuda``); they skip
-where there is none, since a CUDA kernel has no CPU mode. This file imports
+where there is none, since a CUDA kernel has no CPU mode: the tile gather
+K1, the MI joint histogram K2, and both ported paths against the port's CPU
+run. This file imports
 no jax, so it also runs where jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
@@ -44,7 +46,7 @@ def test_staged_pipeline_on_card_matches_cpu():
     kernel versions) with the same RANSAC samples: equal success flags,
     motions within 1e-3."""
     needs_card()
-    from uasl_motion_estimation_tpu_torch._shared import synthetic
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
     from uasl_motion_estimation_tpu_torch.models import pipeline as tp
     from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
 
@@ -66,3 +68,78 @@ def test_staged_pipeline_on_card_matches_cpu():
         out.append(tp._vo_scan_packed(ls, rs, 0, sampler, cfg, 3).cpu().numpy())
     np.testing.assert_array_equal(out[0][:, 16], out[1][:, 16])
     np.testing.assert_allclose(out[1][:, :16], out[0][:, :16], atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep,p,bins,sentinel", [
+    (128, 121, 20, None),  # the MI matcher: 13 x 500 left patches x 128 candidates
+    (1, 121, 20, None),  # the scale LM
+    (128, 121, 20, 20), (1, 81, 32, 25), (1, 121, 20, 31), (128, 81, 32, 400),
+])
+def test_mi_kernel_matches_plain(rep, p, bins, sentinel):
+    """K2 against its plain version on the card at the path shapes, with ids
+    out of [0, bins) in qa: 1e-5 absolute (exact integer counts; only the
+    final float32 sum rounds, in another order)."""
+    needs_card()
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+    gen = torch.Generator().manual_seed(rep + p + bins)
+    qa = torch.randint(0, bins, (13 * 500, p), generator=gen, dtype=torch.int32)
+    if sentinel is not None:
+        qa[::3, -5:] = sentinel
+    qb = torch.randint(0, bins, (13 * 500 * rep, p), generator=gen, dtype=torch.int32)
+    qa, qb = qa.cuda(), qb.cuda()
+    before = kmi.MI.launches
+    got = kmi.mi_pairs(qa, qb, rep=rep, bins=bins)
+    torch.cuda.synchronize()
+    assert kmi.MI.launches == before + 1
+    want = kmi.mi_pairs_plain(qa, qb, rep, p, bins)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_mi_router_refuses_one_hot_on_card():
+    needs_card()
+    from uasl_motion_estimation_tpu_torch.ops import similarity as sim
+
+    x = torch.zeros((4, 11, 11), device="cuda")
+    with pytest.raises(ValueError):
+        sim.mutual_information_batched(x, x, use_pallas=False)
+
+
+@pytest.mark.cuda
+def test_cross_modal_session_on_card_matches_cpu():
+    """The small cross-modal session (192x320, 6 frames, seed 3, 256
+    features, 64 disparities) on the card against the port's CPU run with
+    the same RANSAC samples: equal vo_success, scales within 1e-2 relative
+    and rotations within 1e-3 (MI is quantised: a float32 difference can
+    move a pixel across a bin edge and nudge the MI-LM's end point)."""
+    needs_card()
+    from uasl_motion_estimation_tpu_torch.models import cross_modal as tcm
+    from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
+    from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
+    from uasl_motion_estimation_tpu_torch.models.scale import ScaleConfig
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rig = synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
+                              height=192, width=320)
+    seq = synthetic.SyntheticStereoSequence(n_frames=6, rig=rig, seed=3, cross_modal=True)
+    frames = [seq.frame(i) for i in range(6)]
+    intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
+    cfg = tcm.CrossModalConfig(vo=MonoVOParams(intr=intr),
+                               scale=ScaleConfig(intr=intr, baseline=rig.baseline),
+                               matcher=MatcherConfig(max_disparity=64), max_features=256)
+    cpu_sampler = tcm.make_sampler(0, cfg.vo.n_ransac)
+
+    def sampler(step, valid):
+        return cpu_sampler(step, valid.cpu()).to(valid.device)
+
+    cpu = tcm.run_cross_modal_staged(frames, cfg, chunk=5, device="cpu", sampler=sampler)
+    before = kmi.MI.launches
+    card = tcm.run_cross_modal_staged(frames, cfg, chunk=5, device="cuda", sampler=sampler)
+    assert kmi.MI.launches > before
+    assert [r["success"] for r in card.records] == [r["success"] for r in cpu.records]
+    np.testing.assert_allclose(card.scales, cpu.scales, rtol=1e-2)
+    np.testing.assert_allclose(card.trajectory[:, :3, :3], cpu.trajectory[:, :3, :3], atol=1e-3)

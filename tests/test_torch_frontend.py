@@ -19,9 +19,11 @@ import torch
 
 from uasl_motion_estimation_tpu.models import frontend as jfe
 from uasl_motion_estimation_tpu.ops import image as jim
-from uasl_motion_estimation_tpu_torch._shared import synthetic
 from uasl_motion_estimation_tpu_torch.models import frontend as tfe
+from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams, mono_vo_solve
 from uasl_motion_estimation_tpu_torch.ops import image as tim
+from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+from uasl_motion_estimation_tpu_torch.utils import synthetic
 
 torch.set_num_threads(1)
 RIG = synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
@@ -132,9 +134,10 @@ def test_quad_match_frames_batched_with_shared_pyramids(frames):
 
 def test_unported_options_raise(frames):
     x = torch.from_numpy(frames[0][0])
-    with pytest.raises(NotImplementedError):
-        tfe.match_stereo(x, x, torch.zeros(4, 2), torch.ones(4, dtype=torch.bool),
-                         use_mi=True)
+    with pytest.raises(NotImplementedError):  # needs ops/fivepoint.py
+        mono_vo_solve(torch.zeros(12, 2, 2), torch.ones(12, dtype=torch.bool),
+                      torch.zeros(4, 8, dtype=torch.int64),
+                      MonoVOParams(intr=Intrinsics(320.0, 320.0, 160.0, 96.0), solver="5point"))
     with pytest.raises(NotImplementedError):
         tfe.quad_match_frames(x, x, x, x, max_features=16, detector="topk")
 

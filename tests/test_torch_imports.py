@@ -1,7 +1,7 @@
-"""The port never imports jax: not directly, not through the JAX package's
-``__init__`` (which imports ``ops`` and with it jax). Checked in a fresh
-interpreter that imports the port and runs ``OdometryPipeline.run_staged``
-on the CPU."""
+"""The port never imports jax and never loads a file of the JAX package,
+under any module name. Checked in a fresh interpreter that imports the port
+and runs ``OdometryPipeline.run_staged`` and ``run_cross_modal_staged`` on
+the CPU, then looks at every loaded module's name and ``__file__``."""
 
 import subprocess
 import sys
@@ -11,12 +11,18 @@ REPO = Path(__file__).resolve().parent.parent
 
 SCRIPT = """
 import sys
+from pathlib import Path
 import numpy as np
 import torch
 torch.set_num_threads(1)
 import uasl_motion_estimation_tpu_torch
-from uasl_motion_estimation_tpu_torch._shared import synthetic
+from uasl_motion_estimation_tpu_torch.utils import synthetic
 from uasl_motion_estimation_tpu_torch.models.pipeline import OdometryPipeline, default_config
+from uasl_motion_estimation_tpu_torch.models.cross_modal import (
+    CrossModalConfig, run_cross_modal_staged)
+from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
+from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
+from uasl_motion_estimation_tpu_torch.models.scale import ScaleConfig
 from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
 rig = synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
                           height=96, width=160)
@@ -27,9 +33,22 @@ pipe = OdometryPipeline(cfg, seed=0, device="cpu")
 ls, rs = pipe.stage_frames([seq.frame(i) for i in range(3)])
 traj = pipe.run_staged(ls, rs, chunk=2)
 assert traj.shape == (3, 4, 4) and np.isfinite(traj).all()
+cross = synthetic.SyntheticStereoSequence(n_frames=3, rig=rig, seed=3, tex_size=256,
+                                          cross_modal=True)
+intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
+ccfg = CrossModalConfig(vo=MonoVOParams(intr=intr, n_ransac=32),
+                        scale=ScaleConfig(intr=intr, baseline=rig.baseline, max_iter=3),
+                        matcher=MatcherConfig(max_disparity=32), max_features=64)
+res = run_cross_modal_staged([cross.frame(i) for i in range(3)], ccfg, chunk=2, device="cpu")
+assert res.trajectory.shape == (3, 4, 4) and np.isfinite(res.scales).all()
+jax_pkg = (Path(uasl_motion_estimation_tpu_torch.__file__).resolve().parent.parent
+           / "uasl_motion_estimation_tpu")
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 loaded += sorted(m for m in sys.modules if m.startswith("uasl_motion_estimation_tpu.")
                  or m == "uasl_motion_estimation_tpu")
+loaded += sorted(f"{m} from {f}" for m, mod in list(sys.modules.items())
+                 for f in [getattr(mod, "__file__", None)]
+                 if f and Path(f).resolve().is_relative_to(jax_pkg))
 print("LOADED", loaded)
 sys.exit(1 if loaded else 0)
 """

@@ -20,7 +20,7 @@ import torch
 from uasl_motion_estimation_tpu.models import pipeline as jpipe
 from uasl_motion_estimation_tpu.models.stereo_vo import _sample_hypotheses as jax_sample
 from uasl_motion_estimation_tpu.ops.geometry import Intrinsics as JaxIntrinsics
-from uasl_motion_estimation_tpu_torch._shared import metrics, synthetic
+from uasl_motion_estimation_tpu_torch.utils import metrics, synthetic
 from uasl_motion_estimation_tpu_torch.config import from_reference_config
 from uasl_motion_estimation_tpu_torch.models import pipeline as tpipe
 from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics

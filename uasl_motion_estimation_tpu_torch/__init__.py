@@ -8,8 +8,10 @@ function. Plain tensor code is PyTorch; every Pallas TPU kernel on a ported
 path is a hand-written CUDA kernel under ``csrc/`` with a plain PyTorch
 version beside it (``ops/kernels/``).
 
-This package imports ``torch`` and numpy only, never ``jax``: the numpy-only
-helpers of the JAX package are loaded by file path (``_shared.py``).
+This package imports ``torch``, numpy and the standard library only: never
+``jax`` and no file of the JAX package. It keeps its own copies of the
+numpy-only helpers it needs (``utils/synthetic.py``, ``utils/metrics.py``).
+Entry points run on the CUDA card unless they are given ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -1,22 +1,26 @@
 """Carry a configuration of the JAX package across to the port.
 
 The system has no weights; its state is the configuration NamedTuples.
-``from_reference_config`` walks a JAX ``PipelineConfig`` (or any of its
-parts) through ``_asdict()`` and rebuilds it from the port's NamedTuples of
+``from_reference_config`` walks a JAX ``PipelineConfig`` or
+``CrossModalConfig`` (or any of their parts) through ``_asdict()`` and rebuilds it from the port's NamedTuples of
 the same names, so both sides run the identical configuration. It reads the
 tuples only and never imports jax.
 """
 
 from __future__ import annotations
 
+from .models.cross_modal import CrossModalConfig
 from .models.frontend import KLTConfig, MatcherConfig
+from .models.mono_vo import MonoVOParams
 from .models.pipeline import PipelineConfig
+from .models.scale import ScaleConfig
 from .models.stereo_vo import StereoVOParams
 from .ops.geometry import Intrinsics
 from .solvers.lm import LMConfig
 
 _PORT_TYPES = {t.__name__: t for t in (
-    PipelineConfig, StereoVOParams, Intrinsics, MatcherConfig, KLTConfig, LMConfig)}
+    PipelineConfig, StereoVOParams, Intrinsics, MatcherConfig, KLTConfig, LMConfig,
+    CrossModalConfig, MonoVOParams, ScaleConfig)}
 
 
 def from_reference_config(cfg):

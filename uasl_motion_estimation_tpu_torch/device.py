@@ -1,5 +1,9 @@
 """Device selection and float32 precision policy.
 
+Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
+with no card and no explicit device they raise instead of quietly running on
+the CPU.
+
 The JAX reference pins full-f32 products wherever precision matters
 (``ops/image.py`` sample_tiles, ``ops/stereo.py`` cross term,
 ``models/stereo_vo.py`` normal equations, ``ops/pnp.py`` triad alignment).
@@ -13,10 +17,14 @@ import torch
 
 
 def setup_device(device: str | torch.device | None = None) -> torch.device:
-    """Resolve ``device`` (default: the first CUDA card if there is one,
-    else the CPU) and pin full-f32 matmul and convolution arithmetic."""
+    """Resolve ``device`` (default: the CUDA card; raises when there is none)
+    and pin full-f32 matmul and convolution arithmetic."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card (torch.cuda.is_available() is False); pass "
+                "device='cpu' to run on the CPU")
+        device = "cuda"
     return torch.device(device)

@@ -1,10 +1,12 @@
-"""Feature front-end: grid GFTT detection, ZNCC stereo matching, pyramidal KLT.
+"""Feature front-end: grid GFTT detection, ZNCC and MI stereo matching,
+pyramidal KLT.
 
-Port of ``uasl_motion_estimation_tpu/models/frontend.py`` (the ZNCC path).
-Every stage is batched over leading dims (the sequence scan's chunk steps)
-and fixed-shape: ``max_features`` slots with validity masks. All patch work
-goes through integer tile gathers (kernel K1) followed by separable bilinear
-resampling inside the tiles.
+Port of ``uasl_motion_estimation_tpu/models/frontend.py``. Every stage is
+batched over leading dims (the sequence scan's chunk steps) and fixed-shape:
+``max_features`` slots with validity masks. The ZNCC and KLT patch work goes
+through integer tile gathers (kernel K1) followed by separable bilinear
+resampling inside the tiles; the MI matcher samples bilinear patches and
+scores them with the joint-histogram kernel K2.
 """
 
 from __future__ import annotations
@@ -14,13 +16,14 @@ from typing import NamedTuple
 import torch
 
 from ..ops import image as im
+from ..ops import similarity as sim
 from ..ops import stereo as st
 
 
 class MatcherConfig(NamedTuple):
-    """Same fields and defaults as the JAX MatcherConfig. ``mi_bins``,
-    ``mi_min_score`` and ``use_pallas`` belong to the mutual-information
-    matcher, which is not ported yet."""
+    """Same fields and defaults as the JAX MatcherConfig. ``use_pallas``
+    keeps its JAX meaning for the MI matcher's scoring (see
+    ``ops/similarity.py::mutual_information_batched``)."""
 
     patch_radius: int = 5
     max_disparity: int = 128
@@ -65,6 +68,30 @@ def _scharr_x(p: torch.Tensor) -> torch.Tensor:
     return (p[..., :, 2:] - p[..., :, :-2]) * 0.5
 
 
+def _mi_disparity_scores(img_left: torch.Tensor, img_right: torch.Tensor,
+                         feats_left: torch.Tensor, cfg: MatcherConfig) -> torch.Tensor:
+    """(..., N, D) MI of each left patch against the right patches at
+    disparities 0..D-1 on its row; -inf where a candidate patch leaves the
+    image. The left patch pairs with each of its D candidates inside K2
+    (``rep = D``), so its ids are never written out D times."""
+    h, w = img_left.shape[-2:]
+    r = cfg.patch_radius
+    k = 2 * r + 1
+    n_disp = cfg.max_disparity
+    d_range = torch.arange(n_disp, dtype=img_left.dtype, device=img_left.device)
+    cand = torch.stack([
+        feats_left[..., :, None, 0] - d_range,
+        feats_left[..., :, None, 1].expand(*feats_left.shape[:-1], n_disp),
+    ], dim=-1)  # (..., N, D, 2)
+    patches_l = im.extract_patches(img_left, feats_left, r)  # (..., N, k, k)
+    patches_r = im.extract_patches(img_right, cand.flatten(-3, -2), r).reshape(
+        *cand.shape[:-1], k, k)
+    scores = sim.mutual_information_batched(patches_l[..., None, :, :], patches_r,
+                                            bins=cfg.mi_bins, use_pallas=cfg.use_pallas)
+    cand_ok = im.patch_in_bounds(cand, r + 1, h, w)
+    return torch.where(cand_ok, scores, torch.full_like(scores, -torch.inf))
+
+
 def match_stereo(
     img_left: torch.Tensor,
     img_right: torch.Tensor,
@@ -74,30 +101,39 @@ def match_stereo(
     use_mi: bool = False,
     d_prior: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Epipolar ZNCC matching on rectified pairs, with parabola sub-pixel
-    refinement of the best disparity and a 1-D photometric Lucas-Kanade
-    polish along the epipolar line.
+    """Epipolar stereo matching on rectified pairs, with parabola sub-pixel
+    refinement of the best disparity.
 
-    ``d_prior`` (..., N), if given, narrows the search to ``prior_width``
-    candidates around each feature's prior.
+    ZNCC (default): the strip cost volume, then a 1-D photometric
+    Lucas-Kanade polish along the epipolar line. ``d_prior`` (..., N), if
+    given, narrows the search to ``prior_width`` candidates around each
+    feature's prior.
+
+    ``use_mi=True`` scores with mutual information instead (the cross-modal
+    matcher): bilinear patches at every disparity in [0, max_disparity),
+    scored by kernel K2; no prior and no photometric polish, since intensity
+    consistency does not hold across modalities.
 
     Returns (feats_right (..., N, 2), scores (..., N), valid (..., N)).
     """
-    if use_mi:
-        raise NotImplementedError("the mutual-information matcher is not ported yet")
     h, w = img_left.shape[-2:]
     r = cfg.patch_radius
     dtype = img_left.dtype
 
-    if d_prior is not None:
-        width = cfg.prior_width
-        d0 = torch.clamp(torch.round(d_prior).to(torch.int32) - width // 2, min=0)
-    else:
-        width = cfg.max_disparity
+    if use_mi:
+        scores = _mi_disparity_scores(img_left, img_right, feats_left, cfg)
+        min_score = cfg.mi_min_score
         d0 = None
-    scores = st.zncc_disparity_scores(img_left, img_right, feats_left, width, r,
-                                      d_offset=d0)
-    min_score = cfg.min_score
+    else:
+        if d_prior is not None:
+            width = cfg.prior_width
+            d0 = torch.clamp(torch.round(d_prior).to(torch.int32) - width // 2, min=0)
+        else:
+            width = cfg.max_disparity
+            d0 = None
+        scores = st.zncc_disparity_scores(img_left, img_right, feats_left, width, r,
+                                          d_offset=d0)
+        min_score = cfg.min_score
     n_cand = scores.shape[-1]
     best = torch.argmax(scores, dim=-1)  # first maximum, as jnp.argmax
     best_score = _pick(scores, best)
@@ -116,7 +152,7 @@ def match_stereo(
         disparity = disparity + d0.to(dtype)
     feats_right = torch.stack([feats_left[..., 0] - disparity, feats_left[..., 1]], dim=-1)
 
-    if cfg.refine_iters > 0:
+    if cfg.refine_iters > 0 and not use_mi:
         # value and Scharr-x gradient from ONE widened tile per feature,
         # sized for every iteration (x moves at most 1 px per step)
         tpl = im.extract_patches_sep(img_left, feats_left, r)

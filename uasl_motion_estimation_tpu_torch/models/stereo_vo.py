@@ -141,18 +141,19 @@ def _sq_reproj_error(state, pts3, obs, p: StereoVOParams) -> torch.Tensor:
     return torch.sum(res * res, dim=-1)
 
 
-def _sample_hypotheses(key: Key, n_ransac: int, valid: torch.Tensor) -> torch.Tensor:
-    """(..., H, 3) int64 triples of valid match indices by Gumbel-top-3 over
+def _sample_hypotheses(key: Key, n_ransac: int, valid: torch.Tensor, k: int = 3
+                       ) -> torch.Tensor:
+    """(..., H, k) int64 tuples of valid match indices by Gumbel-top-k over
     the valid mask: with replacement across hypotheses, without inside a
-    triple (selectRandomIndices, cpp:143-163). ``key`` is one generator per
+    tuple (selectRandomIndices, cpp:143-163). ``key`` is one generator per
     problem of ``valid`` (..., N)."""
     if valid.ndim > 1:
-        return torch.stack([_sample_hypotheses(k, n_ransac, v)
-                            for k, v in zip(key, valid, strict=True)])
+        return torch.stack([_sample_hypotheses(g, n_ransac, v, k)
+                            for g, v in zip(key, valid, strict=True)])
     u = torch.rand((n_ransac, valid.shape[0]), generator=key, device=valid.device)
     g = -torch.log(-torch.log(u))
     g = torch.where(valid, g, torch.full_like(g, -torch.inf))
-    return torch.topk(g, 3, dim=-1).indices
+    return torch.topk(g, k, dim=-1).indices
 
 
 def _take(a: torch.Tensor, idx: torch.Tensor, nb: int) -> torch.Tensor:

@@ -1,12 +1,27 @@
 """Projective geometry: the subset of ``uasl_motion_estimation_tpu/ops/geometry.py``
-the stereo-VO path needs (pinhole intrinsics, projection, rectified-stereo
-triangulation). Points are ``(..., 2|3)`` tensors."""
+the ported paths need (homogeneous coordinates, pinhole intrinsics,
+projection, rectified-stereo triangulation). Points are ``(..., 2|3)``
+tensors."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+
+def to_homogeneous(pts: torch.Tensor) -> torch.Tensor:
+    """(..., N) euclidean -> (..., N+1) homogeneous with last coord 1."""
+    return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
+def from_homogeneous(pts: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """(..., N+1) homogeneous -> (..., N) euclidean; a last coordinate
+    below ``eps`` in magnitude becomes +-eps (to_euclidean,
+    feature_types.h:49-86)."""
+    w = pts[..., -1:]
+    w = torch.where(torch.abs(w) < eps, torch.where(w < 0, -eps, eps), w)
+    return pts[..., :-1] / w
 
 
 class Intrinsics(NamedTuple):

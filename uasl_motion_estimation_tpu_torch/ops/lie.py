@@ -1,5 +1,5 @@
 """Rotation algebra: the subset of ``uasl_motion_estimation_tpu/ops/lie.py``
-the stereo-VO path needs (Euler angles, their derivatives, skew).
+the ported paths need (Euler angles, their derivatives, skew, so3_exp).
 
 Conventions are the reference's: ``(roll, pitch, yaw)`` about (x, y, z) and
 ``R = Rx(roll) @ Ry(pitch) @ Rz(yaw)`` in the row convention of
@@ -10,6 +10,8 @@ over leading dimensions.
 from __future__ import annotations
 
 import torch
+
+_EPS = 1e-8
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:
@@ -74,3 +76,17 @@ def R_to_euler(R: torch.Tensor) -> torch.Tensor:
     pitch = -torch.asin(torch.clamp(R[..., 0, 2], -1.0, 1.0))
     yaw = torch.atan2(R[..., 0, 1], R[..., 0, 0])
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def so3_exp(v: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: rotation vector (..., 3) -> (..., 3, 3) (exp_map_Mat,
+    rotation_utils.h:191-218), with the JAX version's Taylor branch below
+    theta^2 = 1e-8."""
+    theta2 = torch.sum(v * v, dim=-1)
+    small = theta2 < _EPS
+    safe_t = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(safe_t) / safe_t)
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(safe_t)) / (safe_t * safe_t))
+    K = skew(v)
+    eye = torch.eye(3, dtype=v.dtype, device=v.device).expand(K.shape)
+    return eye + A[..., None, None] * K + B[..., None, None] * (K @ K)
