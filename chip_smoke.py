@@ -7,9 +7,11 @@
    source, all started together, and prints each build's ``-Xptxas -v``.
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes its paths give it: the tile gather K1 exactly (it is a copy), the
-   MI joint histogram K2 to 1e-5 absolute (its counts are exact integers;
-   only the final float32 sum rounds, in another order than the plain
-   version's), and K2 of identical patches to their entropy within 1e-4.
+   MI joint histogram K2 to 1e-5 absolute in both its modes (its counts are
+   exact integers; only the final float32 sum rounds, in another order than
+   the plain version's): pair mode (the scale LM) with sentinel ids, strip
+   mode (the MI matcher) at 13 x 500 features x 128 disparities; and K2 of
+   identical patches to their entropy within 1e-4.
 4. Checks two small worlds against the port's CPU run (plain kernel
    versions) given the same RANSAC samples: stereo VO, and the cross-modal
    metric-scale session.
@@ -22,12 +24,16 @@
    - the cross-modal session on the same world with its right images
      remapped to the second modality (what ``cross_modal=True`` renders),
      ``CrossModalConfig`` at its defaults, through
-     ``run_cross_modal_staged(chunk=13)``: K1 and K2. Run again with RANSAC
+     ``run_cross_modal_staged(chunk=13)``: K1, K2 in strip mode (the
+     matcher, once per chunk) and K2 in pair mode (the scale LM). Before it,
+     on the first chunk of that world, the matcher's strip ids must equal
+     the per-candidate patches' ids at every in-image candidate, and the
+     matcher alone must launch K2 once, in strip mode. Run again with RANSAC
      seeds 1-4, its median figures over the five seeds are held to the JAX
      reference's over the same seeds (``tools/jax_cross_modal_reference.py``).
 6. Times each path's staged frames/s (median of 3 after the measured run),
-   counts its stream syncs, and times each kernel against its plain version
-   beside the least time the card could take.
+   counts its stream syncs, and times each kernel (K2 in each mode) against
+   its plain version beside the least time the card could take.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase ends the run with a non-zero exit code.
@@ -156,11 +162,13 @@ def mi_ids(gen, rows, p, bins, dev, sentinel=None):
 
 
 def check_mi(dev) -> tuple[float, float]:
-    """K2 vs its plain version: the matcher's shape (13 x 500 left patches,
-    each against 128 candidates) and the scale LM's (rep 1), sentinels 20,
-    25, 31 and 400 in qa, P 81 and 121, bins 20 and 32; identical patches
-    must give the entropy. Returns the largest difference from the plain
-    version and from the entropy."""
+    """K2 vs its plain version. Pair mode: 13 x 500 left patches each against
+    128 candidates (rep 128) and the scale LM's shape (rep 1), sentinels 20,
+    25, 31 and 400 in qa, P 81 and 121, bins 20 and 32. Strip mode: 13 x 500
+    features x 128 disparities at k 11 and bins 20 (the matcher), k 9 with
+    bins 32, and 64 disparities. Identical patches must give the entropy.
+    Returns the largest difference from the plain version and from the
+    entropy."""
     from uasl_motion_estimation_tpu_torch.ops import similarity as sim
     from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
 
@@ -179,6 +187,17 @@ def check_mi(dev) -> tuple[float, float]:
         err = float((got - want).abs().max())
         if not err <= K2_TOL or got.shape != (a * rep,):
             raise AssertionError(f"K2 differs from plain at {(a, rep, p, bins, sentinel)}: {err}")
+        worst = max(worst, err)
+    for k, n_disp, bins in ((11, N_DISP, 20), (9, N_DISP, 32), (11, 64, 20)):
+        qa = mi_ids(gen, rows, k * k, bins, dev).to(torch.uint8)
+        strip = mi_ids(gen, rows * k, n_disp + k - 1, bins, dev).to(torch.uint8)
+        strip = strip.reshape(rows, k, n_disp + k - 1)
+        got = kmi.mi_strip(qa, strip, bins)
+        want = kmi.mi_strip_plain(qa, strip, bins)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= K2_TOL or got.shape != (rows, n_disp):
+            raise AssertionError(f"K2 strip mode differs from plain at {(k, n_disp, bins)}: {err}")
         worst = max(worst, err)
     patches = torch.rand(rows, 11, 11, generator=gen).mul(255).to(dev)
     q = sim.quantise(patches).reshape(rows, -1).contiguous()
@@ -233,31 +252,108 @@ def time_gather(dev) -> dict:
     return out
 
 
-def time_mi(dev) -> dict:
-    """K2 and plain times at the MI matcher's shape: one 13-step chunk, 500
-    left patches each against 128 disparity candidates, 11x11 px, 20 bins.
-    The bound counts qa and qb read once and the scores written once, and
-    the float32 operations these ids need: one log2, one multiply and one
-    add per occupied cell and per occupied marginal bin."""
+def occupied_bins(qa: torch.Tensor, qb: torch.Tensor, rep: int, bins: int) -> int:
+    """Occupied joint cells plus occupied marginal bins over all pairs (pair
+    ``q`` is ``qa[q // rep]`` against ``qb[q]``)."""
+    idx = qa.long().repeat_interleave(rep, 0) * bins + qb.long()
+    counts = torch.zeros((idx.shape[0], bins * bins), device=qb.device).scatter_add_(
+        1, idx, torch.ones_like(idx, dtype=torch.float32)).reshape(-1, bins, bins)
+    return int((counts > 0).sum() + (counts.sum(-1) > 0).sum() + (counts.sum(-2) > 0).sum())
+
+
+def with_bound(r: dict, nbytes: int, occupied: int, **shape) -> dict:
+    """The least time the card could take: the bytes read and written once
+    at the memory rate, against one log2, one multiply and one add per
+    occupied cell and marginal bin at the float32 rate; the larger wins."""
+    ops = 3 * occupied
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    r.update(shape, bytes=nbytes, ops=ops, bound_ms=1e3 * max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return r
+
+
+def time_mi(dev, session_ids) -> dict:
+    """K2 and plain times in both modes, each in turns with its plain
+    version:
+    - strip mode at the matcher's shape (one 13-step chunk, 500 features,
+      128 disparities, 11x11 px, 20 bins), on the ids the matcher gives it on
+      the full-size cross-modal world (``session_ids``) and on uniform ids;
+    - pair mode at the scale LM's shape (13 x 500 pairs, rep 1);
+    - pair mode at the matcher's old pair shape (13 x 500 x 128 pairs,
+      rep 128), where the earlier dense design was timed.
+    The strip mode must agree with its plain version to 1e-5 on both id sets.
+    Each bound counts the ids read once and the scores written once, and
+    the float32 operations its ids need (``with_bound``)."""
     from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
 
     gen = torch.Generator().manual_seed(3)
-    rows, p, bins = CHUNK * N_FEATURES, 121, 20
-    qa = mi_ids(gen, rows, p, bins, dev)
-    qb = mi_ids(gen, rows * N_DISP, p, bins, dev)
-    r = in_turns(lambda: kmi.MI(qa, qb, N_DISP, p, bins),
-                 lambda: kmi.mi_pairs_plain(qa, qb, N_DISP, p, bins), reps=20)
-    idx = qa.long().repeat_interleave(N_DISP, 0) * bins + qb.long()
-    counts = torch.zeros((idx.shape[0], bins * bins), device=dev).scatter_add_(
-        1, idx, torch.ones_like(idx, dtype=torch.float32)).reshape(-1, bins, bins)
-    occupied = int((counts > 0).sum() + (counts.sum(-1) > 0).sum() + (counts.sum(-2) > 0).sum())
-    nbytes = 4 * (qa.numel() + qb.numel() + qb.shape[0])
-    ops = 3 * occupied
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    r.update(shape=[rows, N_DISP, p, bins], bytes=nbytes, ops=ops,
-             bound_ms=1e3 * max(t_bytes, t_ops),
-             bound_by="bytes" if t_bytes >= t_ops else "operations")
-    return r
+    rows, k, bins = CHUNK * N_FEATURES, 11, 20
+    p = k * k
+    out = {}
+    uniform = (mi_ids(gen, rows, p, bins, dev).to(torch.uint8),
+               mi_ids(gen, rows * k, N_DISP + k - 1, bins, dev).to(torch.uint8).reshape(
+                   rows, k, N_DISP + k - 1))
+    for name, (qa, strip) in (("strip_session", session_ids), ("strip_uniform", uniform)):
+        got, want = kmi.mi_strip(qa, strip, bins), kmi.mi_strip_plain(qa, strip, bins)
+        err = float((got - want).abs().max())
+        if not err <= K2_TOL:
+            raise AssertionError(f"K2 strip mode differs from plain on the {name} ids: {err}")
+        r = in_turns(lambda: kmi.MI.strip(qa, strip, bins),
+                     lambda: kmi.mi_strip_plain(qa, strip, bins), reps=20)
+        r["max_abs_err"] = err
+        qb = kmi.strip_windows(strip, k).reshape(-1, p)
+        out[name] = with_bound(r, qa.numel() + strip.numel() + 4 * rows * N_DISP,
+                               occupied_bins(qa, qb, N_DISP, bins),
+                               shape=[rows, N_DISP, p, bins])
+    for name, rep in (("pairs_scale_lm", 1), ("pairs_rep128", N_DISP)):
+        qa = mi_ids(gen, rows, p, bins, dev)
+        qb = mi_ids(gen, rows * rep, p, bins, dev)
+        r = in_turns(lambda: kmi.MI(qa, qb, rep, p, bins),
+                     lambda: kmi.mi_pairs_plain(qa, qb, rep, p, bins),
+                     reps=20 if rep > 1 else 50)
+        out[name] = with_bound(r, 4 * (qa.numel() + qb.numel() + qb.shape[0]),
+                               occupied_bins(qa, qb, rep, bins), shape=[rows, rep, p, bins])
+    return out
+
+
+def matcher_strip_ids(dev, left_u8, right_u8) -> tuple[int, tuple]:
+    """The first chunk of the full-size cross-modal world (13 steps, 500 grid
+    features each, 128 disparities, 11x11 px): step by step, the strip
+    route's ids must equal the per-candidate patches' ids at every in-image
+    candidate. Then ``match_stereo(use_mi=True)`` on the chunk must launch K2
+    once, in strip mode. Returns the candidates compared and the chunk's
+    (left ids, strip ids) as the matcher's K2 launch gets them."""
+    from uasl_motion_estimation_tpu_torch.models import frontend as fe
+    from uasl_motion_estimation_tpu_torch.ops import image as im
+    from uasl_motion_estimation_tpu_torch.ops import similarity as sim
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+    left = left_u8[1:CHUNK + 1].float()
+    right = right_u8[1:CHUNK + 1].float()
+    h, w = left.shape[-2:]
+    feats, _, valid = im.detect_features_grid(left, max_features=N_FEATURES)
+    cfg = fe.MatcherConfig()
+    r, k = cfg.patch_radius, 2 * cfg.patch_radius + 1
+    d_range = torch.arange(N_DISP, dtype=torch.float32, device=dev)
+    compared = 0
+    for s in range(CHUNK):
+        f = feats[s]
+        cand = torch.stack([f[:, None, 0] - d_range, f[:, None, 1].expand(-1, N_DISP)], -1)
+        per_cand = sim.quantise(im.extract_patches(right[s], cand.reshape(-1, 2), r))
+        strip = sim.quantise(im.extract_strips(right[s], f, r, N_DISP))
+        windows = kmi.strip_windows(strip, k).reshape(N_FEATURES, N_DISP, k * k)
+        inside = im.patch_in_bounds(cand, r + 1, h, w)
+        if not torch.equal(windows[inside], per_cand.reshape(N_FEATURES, N_DISP, k * k)[inside]):
+            raise AssertionError(f"strip ids differ from per-candidate ids at step {s}")
+        compared += int(inside.sum())
+    qa = sim.quantise(im.extract_patches(left, feats, r)).to(torch.uint8).reshape(-1, k * k)
+    strip = sim.quantise(im.extract_strips(right, feats, r, N_DISP)).to(torch.uint8)
+    kmi.MI.launches = kmi.MI.strip_launches = 0
+    fe.match_stereo(left, right, feats, valid, cfg, use_mi=True)
+    if (kmi.MI.launches, kmi.MI.strip_launches) != (1, 1):
+        raise AssertionError(f"the MI matcher launched K2 {kmi.MI.launches} times, "
+                             f"{kmi.MI.strip_launches} in strip mode")
+    return compared, (qa.contiguous(), strip.reshape(-1, k, N_DISP + 2 * r).contiguous())
 
 
 def count_syncs(fn) -> int:
@@ -412,7 +508,7 @@ def main() -> int:
     pipe = OdometryPipeline(cfg, seed=0, device=dev, logger=log)
     ls, rs = pipe.stage_frames(frames)
 
-    kg.GATHER.launches = kmi.MI.launches = 0
+    kg.GATHER.launches = kmi.MI.launches = kmi.MI.strip_launches = 0
     t0 = time.perf_counter()
     traj = pipe.run_staged(ls, rs, chunk=CHUNK)
     first_s = time.perf_counter() - t0
@@ -450,14 +546,25 @@ def main() -> int:
     staged = (ls, torch.from_numpy(np.clip(rs_cm, 0, 255).astype(np.uint8)).to(dev))
     torch.cuda.synchronize()
 
-    kg.GATHER.launches = kmi.MI.launches = 0
+    compared, session_ids = matcher_strip_ids(dev, *staged)
+    print(f"MI matcher, first chunk of the full-size cross-modal world: strip ids == "
+          f"per-candidate ids at all {compared} in-image candidates; match_stereo(use_mi=True) "
+          f"launched K2 once, in strip mode", flush=True)
+
+    kg.GATHER.launches = kmi.MI.launches = kmi.MI.strip_launches = 0
     t0 = time.perf_counter()
     res = run_cross_modal_staged(staged, cm_cfg, seed=0, chunk=CHUNK, device=dev)
     first_s = time.perf_counter() - t0
     cm_launches = {"gather_tiles": kg.GATHER.launches, "mi_hist": kmi.MI.launches}
-    if min(cm_launches.values()) <= 0:
-        raise AssertionError(f"the cross-modal path skipped a kernel: {cm_launches}")
-    print(f"cross-modal path: launches {cm_launches}, first run {first_s:.3f} s")
+    cm_modes = {"strip": kmi.MI.strip_launches, "pairs": kmi.MI.launches - kmi.MI.strip_launches}
+    n_chunks = -(-(N_FRAMES - 1) // CHUNK)
+    if min(cm_launches.values()) <= 0 or cm_modes["pairs"] <= 0:
+        raise AssertionError(f"the cross-modal path skipped a kernel: {cm_launches} {cm_modes}")
+    if cm_modes["strip"] != n_chunks:
+        raise AssertionError(f"the MI matcher ran {n_chunks} times but K2's strip mode "
+                             f"launched {cm_modes['strip']} times")
+    print(f"cross-modal path: launches {cm_launches}, K2 by mode {cm_modes} (strip: the "
+          f"matcher, once per chunk; pairs: the scale LM), first run {first_s:.3f} s")
     gt_speed = np.linalg.norm(np.diff(gt, axis=0), axis=1)
     jax_ref = JAX_CROSS_MODAL
     figures = []
@@ -502,11 +609,14 @@ def main() -> int:
         print(f"K1 {name} {r['shape']}: kernel {r['ms']:.4f} ms (runs {r['ms_runs']}), "
               f"plain {r['plain_ms']:.4f} ms (runs {r['plain_ms_runs']}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB); card {card}")
-    tm = time_mi(dev)
-    print(f"K2 matcher {tm['shape']}: kernel {tm['ms']:.4f} ms (runs {tm['ms_runs']}), "
-          f"plain {tm['plain_ms']:.4f} ms (runs {tm['plain_ms_runs']}), bound "
-          f"{tm['bound_ms']:.4f} ms by {tm['bound_by']} ({tm['bytes'] / 1e6:.1f} MB, "
-          f"{tm['ops']:.3g} ops); card {card}")
+    tm = time_mi(dev, session_ids)
+    for name, r in tm.items():
+        err = f", max abs err vs plain {r['max_abs_err']:.3g}" if "max_abs_err" in r else ""
+        print(f"K2 {name} {r['shape']}{err}: kernel {r['ms']:.4f} ms (runs {r['ms_runs']}), "
+              f"plain {r['plain_ms']:.4f} ms (runs {r['plain_ms_runs']}), bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes'] / 1e6:.2f} MB, "
+              f"{r['ops']:.3g} ops); card {card}")
+    strip_t, pairs_t = tm["strip_session"], tm["pairs_scale_lm"]
 
     strip = tg["zncc_strip"]
     print(json.dumps({"kernels": [{
@@ -531,12 +641,22 @@ def main() -> int:
         "launches": cm_launches["mi_hist"],
         "launches_by_path": {"stereo": stereo_launches["mi_hist"],
                              "cross_modal": cm_launches["mi_hist"]},
-        "max_abs_err": k2_err,
-        "ms": tm["ms"],
-        "plain_ms": tm["plain_ms"],
-        "bound_ms": tm["bound_ms"],
-        "bound_by": tm["bound_by"],
+        "max_abs_err": max(k2_err, strip_t["max_abs_err"]),
+        "ms": strip_t["ms"],
+        "plain_ms": strip_t["plain_ms"],
+        "bound_ms": strip_t["bound_ms"],
+        "bound_by": strip_t["bound_by"],
         "library_ms": None,
+        "modes": {
+            "strip": {"launches": cm_modes["strip"], "shape": strip_t["shape"],
+                      "ms": strip_t["ms"], "plain_ms": strip_t["plain_ms"],
+                      "bound_ms": strip_t["bound_ms"], "bound_by": strip_t["bound_by"]},
+            "pairs": {"launches": cm_modes["pairs"], "shape": pairs_t["shape"],
+                      "ms": pairs_t["ms"], "plain_ms": pairs_t["plain_ms"],
+                      "bound_ms": pairs_t["bound_ms"], "bound_by": pairs_t["bound_by"]},
+        },
+        "timings": {name: {key: r[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by")} for name, r in tm.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))

@@ -98,6 +98,38 @@ def test_mi_kernel_matches_plain(rep, p, bins, sentinel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,n_disp,bins", [
+    (11, 128, 20),  # the MI matcher: 13 x 500 features x 128 disparities
+    (9, 128, 32),
+    (11, 64, 20),
+])
+def test_mi_strip_kernel_matches_plain(k, n_disp, bins):
+    """K2's strip mode against its plain version on the card, 1e-5 absolute;
+    one strip launch counted. A flat strip and a feature whose strip holds an
+    id outside [0, bins) (NaN scores) are among the features."""
+    needs_card()
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+    gen = torch.Generator().manual_seed(k + n_disp + bins)
+    n_feat = 13 * 500
+    qa = torch.randint(0, bins, (n_feat, k * k), generator=gen, dtype=torch.uint8)
+    strip = torch.randint(0, bins, (n_feat, k, n_disp + k - 1), generator=gen,
+                          dtype=torch.uint8)
+    strip[1] = 3
+    qa, strip = qa.cuda(), strip.cuda()
+    before, before_strip = kmi.MI.launches, kmi.MI.strip_launches
+    got = kmi.mi_strip(qa, strip, bins)
+    torch.cuda.synchronize()
+    assert (kmi.MI.launches, kmi.MI.strip_launches) == (before + 1, before_strip + 1)
+    want = kmi.mi_strip_plain(qa, strip, bins)
+    assert got.shape == (n_feat, n_disp)
+    assert float((got - want).abs().max()) <= 1e-5
+    strip[7, 2, 5] = bins
+    bad = kmi.mi_strip(qa, strip, bins)
+    assert torch.isnan(bad[7]).all() and torch.equal(bad[8:], got[8:])
+
+
+@pytest.mark.cuda
 def test_mi_router_refuses_one_hot_on_card():
     needs_card()
     from uasl_motion_estimation_tpu_torch.ops import similarity as sim
@@ -137,9 +169,10 @@ def test_cross_modal_session_on_card_matches_cpu():
         return cpu_sampler(step, valid.cpu()).to(valid.device)
 
     cpu = tcm.run_cross_modal_staged(frames, cfg, chunk=5, device="cpu", sampler=sampler)
-    before = kmi.MI.launches
+    before, before_strip = kmi.MI.launches, kmi.MI.strip_launches
     card = tcm.run_cross_modal_staged(frames, cfg, chunk=5, device="cuda", sampler=sampler)
-    assert kmi.MI.launches > before
+    assert kmi.MI.strip_launches > before_strip  # the matcher
+    assert kmi.MI.launches - kmi.MI.strip_launches > before - before_strip  # the scale LM
     assert [r["success"] for r in card.records] == [r["success"] for r in cpu.records]
     np.testing.assert_allclose(card.scales, cpu.scales, rtol=1e-2)
     np.testing.assert_allclose(card.trajectory[:, :3, :3], cpu.trajectory[:, :3, :3], atol=1e-3)

@@ -5,8 +5,9 @@ Port of ``uasl_motion_estimation_tpu/models/frontend.py``. Every stage is
 batched over leading dims (the sequence scan's chunk steps) and fixed-shape:
 ``max_features`` slots with validity masks. The ZNCC and KLT patch work goes
 through integer tile gathers (kernel K1) followed by separable bilinear
-resampling inside the tiles; the MI matcher samples bilinear patches and
-scores them with the joint-histogram kernel K2.
+resampling inside the tiles; the MI matcher samples one bilinear strip per
+feature and scores its disparity windows with the joint-histogram kernel
+K2 (strip mode).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from ..ops import image as im
 from ..ops import similarity as sim
 from ..ops import stereo as st
+from ..ops.kernels import mi as kmi
 
 
 class MatcherConfig(NamedTuple):
@@ -72,22 +74,32 @@ def _mi_disparity_scores(img_left: torch.Tensor, img_right: torch.Tensor,
                          feats_left: torch.Tensor, cfg: MatcherConfig) -> torch.Tensor:
     """(..., N, D) MI of each left patch against the right patches at
     disparities 0..D-1 on its row; -inf where a candidate patch leaves the
-    image. The left patch pairs with each of its D candidates inside K2
-    (``rep = D``), so its ids are never written out D times."""
+    image. The D candidates are the windows of one (k, D + 2r) right strip
+    per feature, sampled once (``im.extract_strips``; the same ids as D
+    separate patches at every in-image candidate) and scored by K2's strip
+    mode, so no (..., N, D, k, k) patch or id tensor is made."""
     h, w = img_left.shape[-2:]
     r = cfg.patch_radius
     k = 2 * r + 1
     n_disp = cfg.max_disparity
+    bins = cfg.mi_bins
+    lead = feats_left.shape[:-1]
     d_range = torch.arange(n_disp, dtype=img_left.dtype, device=img_left.device)
     cand = torch.stack([
         feats_left[..., :, None, 0] - d_range,
-        feats_left[..., :, None, 1].expand(*feats_left.shape[:-1], n_disp),
+        feats_left[..., :, None, 1].expand(*lead, n_disp),
     ], dim=-1)  # (..., N, D, 2)
     patches_l = im.extract_patches(img_left, feats_left, r)  # (..., N, k, k)
-    patches_r = im.extract_patches(img_right, cand.flatten(-3, -2), r).reshape(
-        *cand.shape[:-1], k, k)
-    scores = sim.mutual_information_batched(patches_l[..., None, :, :], patches_r,
-                                            bins=cfg.mi_bins, use_pallas=cfg.use_pallas)
+    strips = im.extract_strips(img_right, feats_left, r, n_disp)  # (..., N, k, D + 2r)
+    strips = strips.reshape(-1, k, n_disp + 2 * r)
+    if cfg.use_pallas is False:  # the one-hot path, CPU tensors only
+        windows = kmi.strip_windows(strips, k).reshape(*lead, n_disp, k, k)
+        scores = sim.mutual_information_batched(patches_l[..., None, :, :], windows,
+                                                bins=bins, use_pallas=False)
+    else:
+        qa = sim.quantise(patches_l, bins).to(torch.uint8).reshape(-1, k * k)
+        qs = sim.quantise(strips, bins).to(torch.uint8)
+        scores = kmi.mi_strip(qa, qs, bins).reshape(*lead, n_disp)
     cand_ok = im.patch_in_bounds(cand, r + 1, h, w)
     return torch.where(cand_ok, scores, torch.full_like(scores, -torch.inf))
 
@@ -110,9 +122,10 @@ def match_stereo(
     feature's prior.
 
     ``use_mi=True`` scores with mutual information instead (the cross-modal
-    matcher): bilinear patches at every disparity in [0, max_disparity),
-    scored by kernel K2; no prior and no photometric polish, since intensity
-    consistency does not hold across modalities.
+    matcher): the bilinear windows at every disparity in [0, max_disparity)
+    of one strip per feature, scored by kernel K2; no prior and no
+    photometric polish, since intensity consistency does not hold across
+    modalities.
 
     Returns (feats_right (..., N, 2), scores (..., N), valid (..., N)).
     """

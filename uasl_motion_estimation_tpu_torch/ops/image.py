@@ -203,6 +203,26 @@ def extract_patches(img: torch.Tensor, centers: torch.Tensor, radius: int
     return bilinear_sample(img, centers[..., :, None, None, :] + offs)
 
 
+def extract_strips(img: torch.Tensor, centers: torch.Tensor, radius: int,
+                   n_disp: int) -> torch.Tensor:
+    """Bilinear (2r+1) x (n_disp + 2r) strips at rows y + j, j in [-r, r],
+    and columns x + m, m in [-(n_disp-1)-r, r], around float centers
+    (..., N, 2): every disparity candidate of the MI matcher at once.
+
+    Window d (columns [n_disp-1-d, n_disp-1-d+2r]) holds the samples that
+    ``extract_patches`` takes around (x - d, y), bit for bit, wherever x - d
+    is exact in float32 (any candidate inside the image): each coordinate is
+    one float32 addition of an integer, and x + (i - d) and (x - d) + i round
+    the same real number."""
+    k = 2 * radius + 1
+    m = torch.arange(-(n_disp - 1) - radius, radius + 1, dtype=img.dtype, device=img.device)
+    j = torch.arange(k, dtype=img.dtype, device=img.device) - radius
+    xs = centers[..., :, None, None, 0] + m  # (..., N, 1, S)
+    ys = centers[..., :, None, None, 1] + j[:, None]  # (..., N, k, 1)
+    xs, ys = torch.broadcast_tensors(xs, ys)
+    return bilinear_sample(img, torch.stack([xs, ys], dim=-1))
+
+
 def extract_tiles(img: torch.Tensor, anchors: torch.Tensor, size: int,
                   size_w: int | None = None) -> torch.Tensor:
     """Integer (size x size_w) tiles at top-left ``anchors`` (..., N, 2)

@@ -1,14 +1,20 @@
 """Joint-histogram mutual information (kernel K2): CUDA kernel wrapper and its
-plain PyTorch version.
+plain PyTorch versions.
 
 Replaces the Pallas TPU kernel ``uasl_motion_estimation_tpu/ops/pallas/mi.py``
 (``_mi_kernel``), the TPU branch of ``ops/similarity.py::
-mutual_information_batched``. The CUDA source is ``csrc/mi_hist.cu``; it is
-bound by bytes (the ids it reads), and its design note is in the source.
+mutual_information_batched``. The CUDA source is ``csrc/mi_hist.cu``; its
+design note (sparse exact counts, bound by shared-memory operations) is in
+the source. Two modes:
 
-Pair ``b`` scores ``qa[b // rep]`` against ``qb[b]``. ``mi_pairs`` takes the
-plain version for a CPU tensor and launches the kernel for a CUDA tensor;
-there is no fallback from one to the other.
+- ``mi_pairs``: pair ``q`` scores ``qa[q // rep]`` against ``qb[q]`` (int32
+  ids, ids outside [0, bins) dropped). The scale LM and the router use it.
+- ``mi_strip``: the MI matcher. Feature ``f`` scores its left patch ``qa[f]``
+  against each window of its right strip ``strip[f]`` (uint8 ids): candidate
+  ``d`` is the window at columns [D-1-d, D-1-d+k).
+
+Each takes the plain version for a CPU tensor and launches the kernel for a
+CUDA tensor; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -21,38 +27,59 @@ from ._build import build_library
 
 SOURCE = "mi_hist.cu"
 MAX_BINS = 32
+MAX_STRIP_PIXELS = 256  # k * k in strip mode: at most 8 pixels per lane
+MAX_PAIR_PIXELS = 512  # P in pair mode: at most 16 pixels per lane
 
 
 class _MIKernel:
-    """Lazily built ctypes binding of ``mi_hist_pairs`` plus its launch count
-    (one per launch, nowhere else)."""
+    """Lazily built ctypes bindings of ``mi_hist_pairs`` and ``mi_hist_strip``
+    plus their launch counts (one per launch, nowhere else): ``launches``
+    counts both modes, ``strip_launches`` the strip mode alone."""
 
     def __init__(self):
         self.launches = 0
-        self._fn = None
+        self.strip_launches = 0
+        self._pairs = None
+        self._strip = None
 
     def load(self):
-        if self._fn is None:
+        if self._pairs is None:
             lib = ctypes.CDLL(str(build_library(SOURCE)))
-            fn = lib.mi_hist_pairs
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            ptrs = [ctypes.c_void_p] * 3
+            self._pairs = lib.mi_hist_pairs
+            self._pairs.argtypes = ptrs + [ctypes.c_int64] + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            self._pairs.restype = ctypes.c_int
+            self._strip = lib.mi_hist_strip
+            self._strip.argtypes = ptrs + [ctypes.c_int64] + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+            self._strip.restype = ctypes.c_int
+        return self._pairs, self._strip
+
+    @staticmethod
+    def _launch(name, fn, dev, *args):
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
     def __call__(self, qa: torch.Tensor, qb: torch.Tensor, rep: int, n_valid: int,
                  bins: int) -> torch.Tensor:
         n_pairs, p = qb.shape
         out = torch.empty((n_pairs,), dtype=torch.float32, device=qb.device)
-        fn = self.load()
-        with torch.cuda.device(qb.device):
-            stream = torch.cuda.current_stream(qb.device).cuda_stream
-            err = fn(qa.data_ptr(), qb.data_ptr(), out.data_ptr(), n_pairs, rep, p,
-                     bins, n_valid, stream)
-        if err != 0:
-            raise RuntimeError(f"mi_hist_pairs launch failed: CUDA error {err}")
+        self._launch("mi_hist_pairs", self.load()[0], qb.device, qa.data_ptr(),
+                     qb.data_ptr(), out.data_ptr(), n_pairs, rep, p, bins, n_valid)
         self.launches += 1
+        return out
+
+    def strip(self, qa: torch.Tensor, strip: torch.Tensor, bins: int) -> torch.Tensor:
+        n_feat, k, s = strip.shape
+        n_disp = s - k + 1
+        out = torch.empty((n_feat, n_disp), dtype=torch.float32, device=strip.device)
+        self._launch("mi_hist_strip", self.load()[1], strip.device, qa.data_ptr(),
+                     strip.data_ptr(), out.data_ptr(), n_feat, k, n_disp, bins)
+        self.launches += 1
+        self.strip_launches += 1
         return out
 
 
@@ -101,8 +128,9 @@ def _check(qa: torch.Tensor, qb: torch.Tensor, rep: int, n_valid: int, bins: int
         raise ValueError("mi_pairs: qa and qb must be contiguous")
     if not 1 <= bins <= MAX_BINS:
         raise ValueError(f"mi_pairs: bins must lie in [1, {MAX_BINS}], got {bins}")
-    if n_valid < 1 or qa.shape[1] < 1:
-        raise ValueError(f"mi_pairs: n_valid {n_valid} and P {qa.shape[1]} must be >= 1")
+    if n_valid < 1 or not 1 <= qa.shape[1] <= MAX_PAIR_PIXELS:
+        raise ValueError(f"mi_pairs: n_valid {n_valid} must be >= 1 and P {qa.shape[1]} in "
+                         f"[1, {MAX_PAIR_PIXELS}]")
 
 
 def mi_pairs(qa: torch.Tensor, qb: torch.Tensor, rep: int = 1, n_valid: int | None = None,
@@ -118,3 +146,53 @@ def mi_pairs(qa: torch.Tensor, qb: torch.Tensor, rep: int = 1, n_valid: int | No
     if qb.device.type == "cuda":
         return MI(qa, qb, rep, n_valid, bins)
     raise ValueError(f"mi_pairs: no kernel for device {qb.device}")
+
+
+def strip_windows(strip: torch.Tensor, k: int) -> torch.Tensor:
+    """(A, k, D + k - 1) strips -> (A, D, k, k) windows indexed by candidate
+    ``d``: window ``d`` is columns [D-1-d, D-1-d+k), so it sits at x - d."""
+    win = strip.unfold(-1, k, 1)  # (A, k, D, k): win[a, i, t, j] = strip[a, i, t + j]
+    return win.permute(0, 2, 1, 3).flip(1)
+
+
+def mi_strip_plain(qa: torch.Tensor, strip: torch.Tensor, bins: int) -> torch.Tensor:
+    """Plain PyTorch K2 strip mode: the strip unfolded into its D windows,
+    indexed by ``d``, then ``mi_pairs_plain`` with ``rep = D``."""
+    n_feat, k, s = strip.shape
+    n_disp = s - k + 1
+    qb = strip_windows(strip, k).reshape(n_feat * n_disp, k * k)
+    return mi_pairs_plain(qa, qb, n_disp, k * k, bins).reshape(n_feat, n_disp)
+
+
+def _check_strip(qa: torch.Tensor, strip: torch.Tensor, bins: int):
+    if qa.dtype != torch.uint8 or strip.dtype != torch.uint8:
+        raise TypeError(f"mi_strip: ids must be uint8, got {qa.dtype} and {strip.dtype}")
+    if strip.ndim != 3 or qa.ndim != 2 or qa.shape != (strip.shape[0], strip.shape[1] ** 2):
+        raise ValueError(f"mi_strip: want qa (A, k * k) and strip (A, k, D + k - 1), got "
+                         f"{tuple(qa.shape)} and {tuple(strip.shape)}")
+    k = strip.shape[1]
+    if not 1 <= k * k <= MAX_STRIP_PIXELS or strip.shape[2] < k:
+        raise ValueError(f"mi_strip: k {k} (k * k <= {MAX_STRIP_PIXELS}) and strip width "
+                         f"{strip.shape[2]} (>= k) out of range")
+    if qa.device != strip.device:
+        raise ValueError(f"mi_strip: qa on {qa.device}, strip on {strip.device}")
+    if not (qa.is_contiguous() and strip.is_contiguous()):
+        raise ValueError("mi_strip: qa and strip must be contiguous")
+    if not 1 <= bins <= MAX_BINS:
+        raise ValueError(f"mi_strip: bins must lie in [1, {MAX_BINS}], got {bins}")
+
+
+def mi_strip(qa: torch.Tensor, strip: torch.Tensor, bins: int = 20) -> torch.Tensor:
+    """(A, D) MI in bits of each left patch ``qa`` (A, k * k) uint8 against
+    the D windows of its strip ``strip`` (A, k, D + k - 1) uint8; window
+    ``d`` is columns [D-1-d, D-1-d+k). Ids must lie in [0, bins): a CPU
+    tensor with any other id raises, and the kernel gives that feature NaN
+    scores."""
+    _check_strip(qa, strip, bins)
+    if strip.device.type == "cpu":
+        if any(t.numel() and int(t.max()) >= bins for t in (qa, strip)):
+            raise ValueError(f"mi_strip: ids must lie in [0, {bins})")
+        return mi_strip_plain(qa, strip, bins)
+    if strip.device.type == "cuda":
+        return MI.strip(qa, strip, bins)
+    raise ValueError(f"mi_strip: no kernel for device {strip.device}")

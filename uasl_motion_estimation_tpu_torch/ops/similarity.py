@@ -77,9 +77,10 @@ def mutual_information_batched(
 
     The patches are quantised once and go to ``kernels.mi.mi_pairs``: on a
     CUDA tensor the CUDA kernel, on a CPU tensor its plain version. A
-    (..., N, 1, H, W) x (..., N, D, H, W) pairing (the MI matcher's cost
-    volume) reaches the kernel as ``rep = D`` without writing the left ids
-    out D times; other broadcasts are expanded first.
+    (..., N, 1, H, W) x (..., N, D, H, W) pairing (one patch against D
+    others) reaches the kernel as ``rep = D`` without writing the left ids
+    out D times; other broadcasts are expanded first. The MI matcher does
+    not come here: it scores its strips with ``kernels.mi.mi_strip``.
 
     ``use_pallas`` keeps the JAX field's meaning for configs carried across:
     None or True take K2; False takes the one-hot ``mutual_information``,
