@@ -34,6 +34,16 @@
 6. Times each path's staged frames/s (median of 3 after the measured run),
    counts its stream syncs, and times each kernel (K2 in each mode) against
    its plain version beside the least time the card could take.
+7. K1 in detail: its device time summed over the launches of one staged
+   stereo run (``torch.profiler``), and at every main-path tile shape and
+   pyramid level, on the anchors the stereo path gives it on its first chunk
+   (recorded by a stand-in for ``ops/image.py``'s ``gather_tiles``) and on
+   uniform random anchors: cold (the L2 flushed before each launch; median
+   of 30, between CUDA events, and the kernel's own duration by the
+   profiler), warm (back to back), against its plain version
+   and ``grid_sample`` (the library yardstick, which the port never calls;
+   both must equal K1 exactly), and against the bytes those anchors need:
+   the distinct image pixels their tiles cover, the anchors and the tiles.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase ends the run with a non-zero exit code.
@@ -65,7 +75,18 @@ SHAPES = {  # main-path K1 tile shapes (tile_h, tile_w) -> where they come from
     (22, 22): "KLT tile",
 }
 LEVELS = [(376, 1241), (188, 621), (94, 311), (47, 156)]  # KLT pyramid
+# K1 calls per chunk of the stereo path: match_stereo twice (strip, template,
+# refine template and tile), KLT's template and tile at each of 4 levels
+K1_PER_CHUNK = 16
+K1_KERNEL = "gather_tiles_kernel"  # the CUDA kernel's name, as the profiler shows it
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FLUSH_BYTES = 256 << 20  # written before each cold launch: five times the 50 MB L2
+COLD_REPS = 30
+# device spins before timed launches (~0.5 ms and ~10 ms at 1.98 GHz), so
+# that the host has enqueued the launch, or all the back-to-back launches,
+# before the start event fires, and the events time the device alone
+SLEEP_CYCLES = 1_000_000
+QUEUE_CYCLES = 20_000_000
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 K2_TOL = 1e-5
 # identical patches against the one-hot entropy, whose float32 terms round
@@ -130,26 +151,32 @@ def random_anchors(gen, batch, n, h, w, dev):
     ax = torch.randint(-300, w + 300, (batch, n), generator=gen)
     ay = torch.randint(-60, h + 60, (batch, n), generator=gen)
     ax[:, 0], ay[:, 0] = -2**31, 2**31 - 1
-    ax[:, 1], ay[:, 1] = 2**31 - 1, -2**31
+    ax[:, -1], ay[:, -1] = 2**31 - 1, -2**31
     return torch.stack([ax, ay], -1).to(torch.int32).to(dev)
 
 
 def check_gather(dev) -> float:
-    """K1 vs its plain version at every main-path tile shape and level."""
+    """K1 vs its plain version at every main-path tile shape and level, and
+    at edge cases: 1x1 and 2x3 images, 1x1 and 3x5 tiles (odd areas, which
+    reach the scalar head and tail), batch 1 and n 1 and 7."""
     from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
 
     gen = torch.Generator().manual_seed(0)
+    cases = [(CHUNK, N_FEATURES, h, w, list(SHAPES)) for h, w in LEVELS]
+    cases += [(batch, n, h, w, [(1, 1), (3, 5), (22, 22)]) for batch in (1, CHUNK)
+              for n in (1, 7) for h, w in ((1, 1), (2, 3), LEVELS[-1])]
     worst = 0.0
-    for h, w in LEVELS:
-        img = (torch.rand(CHUNK, h, w, generator=gen) * 255).to(dev)
-        for th, tw in SHAPES:
-            anc = random_anchors(gen, CHUNK, N_FEATURES, h, w, dev)
+    for batch, n, h, w, tiles in cases:
+        img = (torch.rand(batch, h, w, generator=gen) * 255).to(dev)
+        for th, tw in tiles:
+            anc = random_anchors(gen, batch, n, h, w, dev)
             got = kg.gather_tiles(img, anc, th, tw)
             want = kg.gather_tiles_plain(img, anc, th, tw)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            if err != 0.0 or got.shape != (CHUNK, N_FEATURES, th, tw):
-                raise AssertionError(f"K1 differs from plain at {h}x{w} tile {th}x{tw}: {err}")
+            if err != 0.0 or got.shape != (batch, n, th, tw):
+                raise AssertionError(f"K1 differs from plain at {batch}x{n} tiles {th}x{tw} "
+                                     f"on {h}x{w}: {err}")
             worst = max(worst, err)
     return worst
 
@@ -230,26 +257,210 @@ def in_turns(kernel, plain, reps=50) -> dict:
             "plain_ms_runs": [p1, p2]}
 
 
-def time_gather(dev) -> dict:
-    """K1 and plain times at the ZNCC-strip and level-0 KLT-tile shapes,
-    (13, 500) anchors on a (13, 376, 1241) image. The bound counts the image
-    read once, the anchors read once and the tiles written once."""
+class GatherShim:
+    """Stands in for ``ops/image.py``'s ``gather_tiles`` while entered: it
+    calls the real wrapper, keeps the first ``keep`` calls' arguments
+    (image, anchors, tile_h, tile_w) and counts the calls by tile shape and
+    image size."""
+
+    def __init__(self, keep: int = 0):
+        from uasl_motion_estimation_tpu_torch.ops import image as im
+
+        self._im, self._real = im, im.gather_tiles
+        self.keep, self.calls = keep, []
+        self.counts = {}  # (tile_h, tile_w, H, W) -> calls
+
+    def __call__(self, img, anchors, tile_h, tile_w):
+        if len(self.calls) < self.keep:
+            self.calls.append((img, anchors, tile_h, tile_w))
+        key = (tile_h, tile_w, *img.shape[-2:])
+        self.counts[key] = self.counts.get(key, 0) + 1
+        return self._real(img, anchors, tile_h, tile_w)
+
+    def __enter__(self):
+        self._im.gather_tiles = self
+        return self
+
+    def __exit__(self, *exc):
+        self._im.gather_tiles = self._real
+
+
+def kernel_times_ms(fn, kernel: str, launches: int, least: int | None = None,
+                    tries: int = 3) -> list[float] | None:
+    """Runs ``fn``, which launches the CUDA kernels whose name holds
+    ``kernel`` ``launches`` times, under ``torch.profiler``, and returns the
+    device duration of each launch recorded. The profiler now and then
+    records fewer launches than were made, or none; a run that recorded
+    fewer than ``least`` (default: all) is run again, up to ``tries`` times
+    in all, and then None is returned: these figures are reported, not
+    checked, so a profiler that misses launches fails no phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    least = launches if least is None else least
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times = [1e-3 * e.time_range.elapsed_us() for e in prof.events() if kernel in e.name]
+        if least <= len(times) <= launches:
+            return times
+    print(f"the profiler recorded {len(times)} of {launches} launches of {kernel}, "
+          f"{tries} times", file=sys.stderr)
+    return None
+
+
+def cold_ms(fn, flush: torch.Tensor, reps: int = COLD_REPS) -> float:
+    """Median device time of ``fn`` over ``reps`` launches, each on a cold L2:
+    ``flush`` is written before each launch, outside the launch's events."""
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in events]))
+
+
+def cold_kernel_ms(fn, flush: torch.Tensor, kernel: str, reps: int = COLD_REPS) -> float | None:
+    """Median duration on the device of ``kernel``'s launch by ``fn`` (the
+    profiler's record, without the events' own overhead), each launch on a
+    cold L2 as in ``cold_ms``; over at least half the launches, since the
+    profiler may miss a few."""
+    def cold_launches():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+
+    fn()
+    times = kernel_times_ms(cold_launches, kernel, reps, least=reps // 2)
+    return None if times is None else float(np.median(times))
+
+
+def warm_ms(fn, reps: int = 50) -> float:
+    """Device time per launch of ``fn`` over ``reps`` launches back to back,
+    the data warm in L2, queued behind a device sleep."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def library_gather(img, anchors, tile_h, tile_w):
+    """K1's function as one PyTorch call, the yardstick: ``grid_sample``,
+    nearest, border padding, ``align_corners=True``, on a grid of the tiles'
+    integer coordinates (anchors clamped first, as K1 does; border padding
+    clamps the rest). The grid is built here; returns the call."""
+    import torch.nn.functional as F
+
+    batch, h, w = img.shape
+    n = anchors.shape[1]
+    if h < 2 or w < 2:
+        raise ValueError("library_gather: align_corners needs an image of 2 x 2 or more")
+    ax = torch.clamp(anchors[..., 0].double(), -tile_w, w - 1)
+    ay = torch.clamp(anchors[..., 1].double(), -tile_h, h - 1)
+    cols = ax[..., None] + torch.arange(tile_w, device=img.device)  # (B, N, tw)
+    rows = ay[..., None] + torch.arange(tile_h, device=img.device)  # (B, N, th)
+    gx = (cols * (2.0 / (w - 1)) - 1.0)[:, :, None, :].expand(-1, -1, tile_h, -1)
+    gy = (rows * (2.0 / (h - 1)) - 1.0)[:, :, :, None].expand(-1, -1, -1, tile_w)
+    grid = torch.stack([gx, gy], -1).float().reshape(batch, n * tile_h, tile_w, 2)
+    src = img[:, None]
+
+    def call():
+        return F.grid_sample(src, grid, mode="nearest", padding_mode="border",
+                             align_corners=True).reshape(batch, n, tile_h, tile_w)
+
+    return call
+
+
+def gather_cases(dev, path_calls) -> list[dict]:
+    """K1's inputs at every main-path tile shape and level, two sets each:
+    the stereo path's own (one call per shape and image size, the first, of
+    the calls recorded on its first chunk) and uniform random anchors over
+    the image of the same size, one set per size. The random level-0 image
+    and anchors are those K1 was timed on before it timed the path's (seed
+    1), so those rows continue."""
+    path, seen = [], set()
+    for img, anc, th, tw in path_calls:
+        h, w = img.shape[-2:]
+        if (th, tw, h, w) not in seen:
+            seen.add((th, tw, h, w))
+            img3 = img.reshape(-1, h, w)
+            path.append({"anchors": "path", "img": img3,
+                         "anc": anc.reshape(img3.shape[0], -1, 2), "tile": (th, tw)})
+    gen = torch.Generator().manual_seed(1)
+    randoms = {}
+    for h, w in sorted({(h, w) for _, _, h, w in seen}, reverse=True):  # level 0 first
+        img = (torch.rand(CHUNK, h, w, generator=gen) * 255).to(dev)
+        xs = torch.randint(0, w, (CHUNK, N_FEATURES), generator=gen)
+        ys = torch.randint(0, h, (CHUNK, N_FEATURES), generator=gen)
+        randoms[(h, w)] = (img, torch.stack([xs, ys], -1).to(torch.int32).to(dev))
+    rand = []
+    for case in path:
+        img, anc = randoms[tuple(case["img"].shape[-2:])]
+        rand.append({"anchors": "random", "img": img, "anc": anc, "tile": case["tile"]})
+    return path + rand
+
+
+def case_name(case) -> str:
+    (th, tw), (h, w) = case["tile"], case["img"].shape[-2:]
+    return f"{case['anchors']} {th}x{tw} on {h}x{w}"
+
+
+def time_gather_case(case, flush) -> dict:
+    """One K1 case: the kernel against its plain version and ``grid_sample``
+    (exactly), then cold times in turns (library, plain, kernel, kernel,
+    plain, library), the kernel's cold duration by the profiler, two warm
+    times of the kernel, and the bound from the bytes these anchors need
+    (``gather_bytes``)."""
     from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
 
-    gen = torch.Generator().manual_seed(1)
-    img = (torch.rand(CHUNK, 376, 1241, generator=gen) * 255).to(dev)
-    xs = torch.randint(0, 1241, (CHUNK, N_FEATURES), generator=gen)
-    ys = torch.randint(0, 376, (CHUNK, N_FEATURES), generator=gen)
-    anc = torch.stack([xs, ys], -1).to(torch.int32).to(dev)
-    out = {}
-    for name, (th, tw) in (("zncc_strip", (11, 138)), ("klt_tile", (22, 22))):
-        r = in_turns(lambda: kg.gather_tiles(img, anc, th, tw),
-                     lambda: kg.gather_tiles_plain(img, anc, th, tw))
-        nbytes = 4 * (img.numel() + anc.numel() + CHUNK * N_FEATURES * th * tw)
-        r.update(shape=[CHUNK, N_FEATURES, th, tw], bytes=nbytes,
-                 bound_ms=1e3 * nbytes / HBM_BYTES_PER_S)
-        out[name] = r
-    return out
+    img, anc, (th, tw) = case["img"], case["anc"], case["tile"]
+    h, w = img.shape[-2:]
+
+    def kernel():
+        return kg.gather_tiles(img, anc, th, tw)
+
+    def plain():
+        return kg.gather_tiles_plain(img, anc, th, tw)
+
+    library = library_gather(img, anc, th, tw)
+    got = kernel()
+    if not (torch.equal(got, plain()) and torch.equal(got, library())):
+        raise AssertionError(f"K1 differs from its plain version or grid_sample: "
+                             f"{case_name(case)}")
+    lib1, plain1, k1, k2, plain2, lib2 = (cold_ms(f, flush) for f in
+                                          (library, plain, kernel, kernel, plain, library))
+    kernel_ms = cold_kernel_ms(kernel, flush, K1_KERNEL)
+    warm = [warm_ms(kernel), warm_ms(kernel)]
+    nbytes = kg.gather_bytes(anc, h, w, th, tw)
+    bound = 1e3 * nbytes / HBM_BYTES_PER_S
+    ms = min(k1, k2)
+    return {"anchors": case["anchors"], "shape": [*anc.shape[:2], th, tw], "image": [h, w],
+            "ms": ms, "ms_runs": [k1, k2], "kernel_ms": kernel_ms, "warm_ms": min(warm),
+            "warm_ms_runs": warm, "plain_ms": min(plain1, plain2),
+            "library_ms": min(lib1, lib2), "library_ms_runs": [lib1, lib2], "bytes": nbytes,
+            "bound_ms": bound, "bound_by": "bytes", "share": bound / ms,
+            "kernel_share": None if kernel_ms is None else bound / kernel_ms}
+
+
+def time_gather(dev, path_calls) -> tuple[dict, float]:
+    """``time_gather_case`` at every case of ``gather_cases``, by name, and
+    the floor of the cold timing: ``cold_ms`` of an empty window."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cases = {case_name(c): time_gather_case(c, flush) for c in gather_cases(dev, path_calls)}
+    return cases, cold_ms(lambda: None, flush)
 
 
 def occupied_bins(qa: torch.Tensor, qb: torch.Tensor, rep: int, bins: int) -> int:
@@ -482,7 +693,8 @@ def main() -> int:
     build_kernels()
 
     k1_err = check_gather(dev)
-    print(f"K1 == plain at {len(SHAPES)} tile shapes x {len(LEVELS)} levels, max abs err {k1_err}")
+    print(f"K1 == plain at {len(SHAPES)} tile shapes x {len(LEVELS)} levels and at the edge "
+          f"cases, max abs err {k1_err}")
     k2_err, ent_err = check_mi(dev)
     print(f"K2 vs plain at the matcher and scale shapes, sentinels 20/25/31/400, P 81/121, "
           f"bins 20/32: max abs err {k2_err:.3g} (tolerance {K2_TOL}); identical patches "
@@ -537,6 +749,20 @@ def main() -> int:
     print(f"stereo staged frames/s {(N_FRAMES - 1) / float(np.median(times)):.2f} "
           f"(median of {times}, chunk {CHUNK}); {stereo_syncs} stream syncs per run; "
           f"card {card}", flush=True)
+    # K1's calls in one run (the first chunk's kept for its timings), and its
+    # device time over another
+    n_chunks = -(-(N_FRAMES - 1) // CHUNK)
+    with GatherShim(keep=K1_PER_CHUNK) as shim:
+        stereo_run()
+    n_calls = sum(shim.counts.values())
+    if not n_calls == stereo_launches["gather_tiles"] == K1_PER_CHUNK * n_chunks:
+        raise AssertionError(f"the shim saw {n_calls} K1 calls in a stereo run, the launch "
+                             f"count says {stereo_launches['gather_tiles']}, expected "
+                             f"{K1_PER_CHUNK} per chunk")
+    k1_run_ms = kernel_times_ms(stereo_run, K1_KERNEL, n_calls)
+    per_run = None if k1_run_ms is None else sum(k1_run_ms)
+    print(f"K1 over one staged stereo run: {n_calls} launches, {per_run} ms of device time "
+          f"(torch.profiler); card {card}", flush=True)
 
     # --- cross-modal metric-scale path: the same world, its right images in
     # the second modality (the remap SyntheticStereoSequence applies with
@@ -557,7 +783,6 @@ def main() -> int:
     first_s = time.perf_counter() - t0
     cm_launches = {"gather_tiles": kg.GATHER.launches, "mi_hist": kmi.MI.launches}
     cm_modes = {"strip": kmi.MI.strip_launches, "pairs": kmi.MI.launches - kmi.MI.strip_launches}
-    n_chunks = -(-(N_FRAMES - 1) // CHUNK)
     if min(cm_launches.values()) <= 0 or cm_modes["pairs"] <= 0:
         raise AssertionError(f"the cross-modal path skipped a kernel: {cm_launches} {cm_modes}")
     if cm_modes["strip"] != n_chunks:
@@ -599,16 +824,26 @@ def main() -> int:
 
     times = timed_runs(cm_run)
     cm_syncs = count_syncs(cm_run)
+    with GatherShim() as cm_shim:
+        cm_run()
     print(f"cross-modal staged frames/s {(N_FRAMES - 1) / float(np.median(times)):.2f} "
           f"(median of {times}, chunk {CHUNK}); {cm_syncs} stream syncs per run; "
           f"card {card}", flush=True)
 
     # --- kernel timings ---
-    tg = time_gather(dev)
+    tg, event_floor = time_gather(dev, shim.calls)
+    print(f"K1 cold timings: two CUDA events with no launch between them read "
+          f"{event_floor:.4f} ms after the same flush")
     for name, r in tg.items():
-        print(f"K1 {name} {r['shape']}: kernel {r['ms']:.4f} ms (runs {r['ms_runs']}), "
-              f"plain {r['plain_ms']:.4f} ms (runs {r['plain_ms_runs']}), bound "
-              f"{r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB); card {card}")
+        key = (*r["shape"][2:], *r["image"])
+        r["launches"] = {"stereo": shim.counts.get(key, 0),
+                         "cross_modal": cm_shim.counts.get(key, 0)}
+        print(f"K1 {name} {r['shape']}: cold {r['ms']:.4f} ms (runs {r['ms_runs']}; the kernel "
+              f"alone {r['kernel_ms']} ms), warm {r['warm_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, grid_sample {r['library_ms']:.4f} ms (runs "
+              f"{r['library_ms_runs']}), bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.2f} MB), "
+              f"share {100 * r['share']:.1f} % ({r['kernel_share']} of the kernel alone); "
+              f"launches per run {r['launches']}; card {card}")
     tm = time_mi(dev, session_ids)
     for name, r in tm.items():
         err = f", max abs err vs plain {r['max_abs_err']:.3g}" if "max_abs_err" in r else ""
@@ -618,7 +853,8 @@ def main() -> int:
               f"{r['ops']:.3g} ops); card {card}")
     strip_t, pairs_t = tm["strip_session"], tm["pairs_scale_lm"]
 
-    strip = tg["zncc_strip"]
+    headline = f"path 11x138 on {rig.height}x{rig.width}"  # the ZNCC strip, level 0
+    strip = tg[headline]
     print(json.dumps({"kernels": [{
         "name": "gather_tiles",
         "route": "cuda",
@@ -629,10 +865,20 @@ def main() -> int:
                              "cross_modal": cm_launches["gather_tiles"]},
         "max_abs_err": k1_err,
         "ms": strip["ms"],
+        "warm_ms": strip["warm_ms"],
         "plain_ms": strip["plain_ms"],
         "bound_ms": strip["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": None,
+        "share": strip["share"],
+        "library_ms": strip["library_ms"],
+        "headline": headline,
+        "per_run_ms": per_run,
+        "per_run_launches": n_calls,
+        "kernel_ms": strip["kernel_ms"],
+        "event_floor_ms": event_floor,
+        "timings": {name: {key: r[key] for key in (
+            "anchors", "shape", "image", "ms", "kernel_ms", "warm_ms", "plain_ms", "library_ms",
+            "bound_ms", "share", "kernel_share", "launches")} for name, r in tg.items()},
     }, {
         "name": "mi_hist",
         "route": "cuda",

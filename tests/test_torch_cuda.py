@@ -7,6 +7,9 @@ no jax, so it also runs where jax is absent:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,8 @@ import torch
 from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
 
 MAIN_PATH_TILES = [(11, 138), (11, 34), (11, 11), (14, 18), (12, 12), (14, 14), (22, 22)]
+# the KLT pyramid's levels of a 376x1241 frame, and the smallest images
+IMAGES = [(376, 1241), (188, 621), (94, 311), (47, 156), (1, 1), (2, 3)]
 
 
 def needs_card():
@@ -21,23 +26,76 @@ def needs_card():
         pytest.skip("needs a CUDA card and nvcc: the CUDA kernel has no CPU mode")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("th,tw", MAIN_PATH_TILES)
-def test_gather_kernel_matches_plain(th, tw):
-    """K1 against its plain version on the card: negative, out-of-range and
-    int32-extreme anchors, a batch dim. Exact (the output is a copy)."""
-    needs_card()
-    gen = torch.Generator().manual_seed(th * 1000 + tw)
-    img = (torch.rand(3, 376, 1241, generator=gen) * 255).cuda()
-    anc = torch.stack([torch.randint(-300, 1600, (3, 500), generator=gen),
-                       torch.randint(-60, 440, (3, 500), generator=gen)], -1)
+def edge_anchors(gen, batch, n, h, w):
+    """Anchors over and far beyond the image, with the int32 extremes."""
+    anc = torch.stack([torch.randint(-300, w + 300, (batch, n), generator=gen),
+                       torch.randint(-60, h + 60, (batch, n), generator=gen)], -1)
     anc[:, 0] = torch.tensor([-2**31, 2**31 - 1])
-    anc = anc.to(torch.int32).cuda()
-    before = kg.GATHER.launches
-    got = kg.gather_tiles(img, anc, th, tw)
-    torch.cuda.synchronize()
-    assert kg.GATHER.launches == before + 1
-    assert torch.equal(got, kg.gather_tiles_plain(img, anc, th, tw))
+    anc[:, -1] = torch.tensor([2**31 - 1, -2**31])
+    return anc.to(torch.int32).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", IMAGES)
+@pytest.mark.parametrize("th,tw", MAIN_PATH_TILES + [(1, 1), (3, 5)])
+def test_gather_kernel_matches_plain(th, tw, h, w):
+    """K1 against its plain version on the card, batch 1 and 13 by n 1, 7
+    and 500: negative, out-of-range and int32-extreme anchors; odd tile
+    areas (1x1, 3x5) reach the scalar head and tail. Exact (the output is a
+    copy); one launch per call."""
+    needs_card()
+    gen = torch.Generator().manual_seed(th * 1000 + tw + h + w)
+    for batch in (1, 13):
+        img = (torch.rand(batch, h, w, generator=gen) * 255).cuda()
+        for n in (1, 7, 500):
+            anc = edge_anchors(gen, batch, n, h, w)
+            before = kg.GATHER.launches
+            got = kg.gather_tiles(img, anc, th, tw)
+            torch.cuda.synchronize()
+            assert kg.GATHER.launches == before + 1
+            assert torch.equal(got, kg.gather_tiles_plain(img, anc, th, tw)), (batch, n)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_writes_unaligned_output_exactly():
+    """The C interface into an output that starts 4, 8 and 12 bytes past a
+    16-byte boundary: the scalar head, the vector body and the tail."""
+    needs_card()
+    gen = torch.Generator().manual_seed(5)
+    img = (torch.rand(2, 94, 311, generator=gen) * 255).cuda()
+    anc = edge_anchors(gen, 2, 7, 94, 311)
+    want = kg.gather_tiles_plain(img, anc, 3, 5)
+    fn = kg.GATHER.load()
+    for shift in (1, 2, 3):
+        buf = torch.full((shift + want.numel() + 4,), -1.0, device="cuda")
+        err = fn(img.data_ptr(), anc.data_ptr(), buf[shift:].data_ptr(), 2, 94, 311, 7, 3, 5,
+                 torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(buf[shift:shift + want.numel()].reshape(want.shape), want)
+        assert (buf[:shift] == -1).all() and (buf[shift + want.numel():] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", IMAGES[:4])
+@pytest.mark.parametrize("th,tw", MAIN_PATH_TILES)
+def test_gather_kernel_matches_grid_sample(th, tw, h, w):
+    """K1 against the library yardstick that ``chip_smoke.py`` times
+    (``grid_sample``, nearest, border, align_corners), exactly."""
+    needs_card()
+    smoke = load_chip_smoke()
+    gen = torch.Generator().manual_seed(th + tw + h)
+    img = (torch.rand(13, h, w, generator=gen) * 255).cuda()
+    anc = edge_anchors(gen, 13, 500, h, w)
+    assert torch.equal(kg.gather_tiles(img, anc, th, tw), smoke.library_gather(img, anc, th, tw)())
+
+
+def load_chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @pytest.mark.cuda

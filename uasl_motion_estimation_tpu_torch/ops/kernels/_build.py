@@ -35,11 +35,12 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: building a CUDA kernel needs the CUDA toolkit")
 
 
-def build_library(source_name: str) -> Path:
-    """Compile ``csrc/<source_name>`` (unless already built) and return the
-    path of the shared library. The compiler's output, register and shared
-    memory use included, is kept beside it as ``<library>.log``."""
-    src = CSRC / source_name
+def build_library(source: str | Path) -> Path:
+    """Compile ``csrc/<source>``, or the file ``source`` where it is an
+    absolute path (another checkout's kernel), unless already built, and
+    return the path of the shared library. The compiler's output, register
+    and shared memory use included, is kept beside it as ``<library>.log``."""
+    src = CSRC / source  # an absolute ``source`` replaces CSRC
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
     if lib.exists():

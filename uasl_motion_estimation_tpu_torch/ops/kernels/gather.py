@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel ``uasl_motion_estimation_tpu/ops/pallas/gather.py``
 (``_gather_kernel``), the TPU branch of ``ops/image.py::extract_tiles``. The
 CUDA source is ``csrc/gather_tiles.cu``; it is bound by bytes (a copy), and
-its design note is in the source.
+its design note is in the source. ``gather_bytes`` counts the bytes a call
+must move, which is the kernel's bound.
 
 ``gather_tiles`` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; there is no fallback from one to the other.
@@ -12,12 +13,22 @@ kernel for a CUDA tensor; there is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 
 import torch
 
 from ._build import build_library
 
 SOURCE = "gather_tiles.cu"
+
+
+def bind(library: str | Path):
+    """``gather_tiles_f32`` of a built library, with its argument types."""
+    fn = ctypes.CDLL(str(library)).gather_tiles_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes += [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 class _GatherKernel:
@@ -30,12 +41,7 @@ class _GatherKernel:
 
     def load(self):
         if self._fn is None:
-            lib = ctypes.CDLL(str(build_library(SOURCE)))
-            fn = lib.gather_tiles_f32
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-            fn.argtypes += [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = bind(build_library(SOURCE))
         return self._fn
 
     def __call__(self, img: torch.Tensor, anchors: torch.Tensor, tile_h: int,
@@ -58,20 +64,42 @@ class _GatherKernel:
 GATHER = _GatherKernel()
 
 
-def gather_tiles_plain(img: torch.Tensor, anchors: torch.Tensor, tile_h: int,
-                       tile_w: int) -> torch.Tensor:
-    """Plain PyTorch K1 on (B, H, W) images and (B, N, 2) anchors: edge
-    replication as clamped row/column indices (the same values as an
-    edge-padded image indexed at the shifted anchors)."""
-    batch, h, w = img.shape
-    n = anchors.shape[1]
+def _source_index(anchors: torch.Tensor, h: int, w: int, tile_h: int,
+                  tile_w: int) -> torch.Tensor:
+    """(..., N, tile_h, tile_w) int64 index into its (h, w) image of the
+    pixel each output element copies: edge replication as clamped row and
+    column indices, the anchor clamped first."""
     ax = torch.clamp(anchors[..., 0].long(), -tile_w, w - 1)
     ay = torch.clamp(anchors[..., 1].long(), -tile_h, h - 1)
-    rows = torch.clamp(ay[..., None] + torch.arange(tile_h, device=img.device), 0, h - 1)
-    cols = torch.clamp(ax[..., None] + torch.arange(tile_w, device=img.device), 0, w - 1)
-    lin = rows[..., :, None] * w + cols[..., None, :]  # (B, N, th, tw)
+    rows = torch.clamp(ay[..., None] + torch.arange(tile_h, device=anchors.device), 0, h - 1)
+    cols = torch.clamp(ax[..., None] + torch.arange(tile_w, device=anchors.device), 0, w - 1)
+    return rows[..., :, None] * w + cols[..., None, :]
+
+
+def gather_tiles_plain(img: torch.Tensor, anchors: torch.Tensor, tile_h: int,
+                       tile_w: int) -> torch.Tensor:
+    """Plain PyTorch K1 on (B, H, W) images and (B, N, 2) anchors (the same
+    values as an edge-padded image indexed at the shifted anchors)."""
+    batch, h, w = img.shape
+    n = anchors.shape[1]
+    lin = _source_index(anchors, h, w, tile_h, tile_w)
     out = torch.gather(img.reshape(batch, h * w), 1, lin.reshape(batch, -1))
     return out.reshape(batch, n, tile_h, tile_w)
+
+
+def gather_bytes(anchors: torch.Tensor, h: int, w: int, tile_h: int, tile_w: int) -> int:
+    """Bytes that K1 must move for (..., N, 2) anchors on (..., h, w)
+    float32 images: every distinct image pixel that the tiles cover, read
+    once (counted with a boolean mask over the images), the anchors read
+    once and the tiles written once."""
+    n = anchors.shape[-2]
+    anc = anchors.reshape(-1, n, 2)
+    batch = anc.shape[0]
+    lin = _source_index(anc, h, w, tile_h, tile_w).reshape(batch, -1)
+    lin = lin + torch.arange(batch, device=lin.device)[:, None] * (h * w)
+    seen = torch.zeros(batch * h * w, dtype=torch.bool, device=lin.device)
+    seen[lin.reshape(-1)] = True
+    return 4 * (int(seen.sum()) + anc.numel() + batch * n * tile_h * tile_w)
 
 
 def _check(img: torch.Tensor, anchors: torch.Tensor, tile_h: int, tile_w: int):
@@ -93,6 +121,8 @@ def _check(img: torch.Tensor, anchors: torch.Tensor, tile_h: int, tile_w: int):
         raise ValueError("gather_tiles: image and anchors must be contiguous")
     if tile_h < 1 or tile_w < 1 or img.shape[-1] < 1 or img.shape[-2] < 1:
         raise ValueError("gather_tiles: empty image or tile")
+    if img.shape[-1] * img.shape[-2] >= 2**31 or anchors.numel() // 2 * tile_h * tile_w >= 2**31:
+        raise ValueError("gather_tiles: an image or the output holds 2^31 elements or more")
 
 
 def gather_tiles(img: torch.Tensor, anchors: torch.Tensor, tile_h: int,
@@ -109,8 +139,6 @@ def gather_tiles(img: torch.Tensor, anchors: torch.Tensor, tile_h: int,
     if img.device.type == "cpu":
         out = gather_tiles_plain(img3, anc3, tile_h, tile_w)
     elif img.device.type == "cuda":
-        if img3.shape[0] > 65535:
-            raise ValueError("gather_tiles: batch above 65535")
         out = GATHER(img3, anc3, tile_h, tile_w)
     else:
         raise ValueError(f"gather_tiles: no kernel for device {img.device}")
