@@ -12,9 +12,9 @@
    the plain version's): pair mode (the scale LM) with sentinel ids, strip
    mode (the MI matcher) at 13 x 500 features x 128 disparities; and K2 of
    identical patches to their entropy within 1e-4.
-4. Checks two small worlds against the port's CPU run (plain kernel
-   versions) given the same RANSAC samples: stereo VO, and the cross-modal
-   metric-scale session.
+4. Checks three small worlds against the port's CPU run (plain kernel
+   versions) given the same RANSAC samples: stereo VO, the cross-modal
+   metric-scale session, and the integrated VO+BA engine (2 windows).
 5. Drives each path at full size, with every kernel's launch count set to 0
    just before and read just after; each kernel of the path must have
    launched:
@@ -30,13 +30,29 @@
      the per-candidate patches' ids at every in-image candidate, and the
      matcher alone must launch K2 once, in strip mode. Run again with RANSAC
      seeds 1-4, its median figures over the five seeds are held to the JAX
-     reference's over the same seeds (``tools/jax_cross_modal_reference.py``).
-6. Times each path's staged frames/s (median of 3 after the measured run),
-   counts its stream syncs, and times each kernel (K2 in each mode) against
-   its plain version beside the least time the card could take.
+     reference's over the same seeds (``tools/jax_cross_modal_reference.py``);
+   - the integrated VO+BA engine (unified track table, windowed BA) through
+     ``run_unified_system`` on the stereo world, SmootherConfig at its
+     defaults (window 5, ba_rate 4, 25 BA iterations), 5 windows per group:
+     K1; every window's BA converged, ATE after BA below the VO chain's and
+     below 0.1 m (seed 0), and the median ATE after BA over RANSAC seeds 0-2
+     within 1.5x the JAX reference's (``tools/jax_unified_reference.py``);
+     then the same on the corrupted world of ``benchmarks/full_system.py``
+     (seed 0): K1, convergence, ATE after BA below the VO chain's;
+   - the streaming engines from host frames: ``run_streaming`` (chunk 13)
+     and ``run_unified_streaming`` (super-chunks of one 5-window group): K1;
+     each trajectory equal to its staged twin's to 1e-4 on the motions both
+     solve with the same windows.
+6. Times each path's frames/s (median of 3 after the measured run; the
+   streaming engines end to end, with their in-run upload figures), counts
+   its stream syncs (the stereo and cross-modal figures beside those from
+   before the port cached its small constants), and times each kernel (K2
+   in each mode) against its plain version beside the least time the card
+   could take.
 7. K1 in detail: its device time summed over the launches of one staged
-   stereo run (``torch.profiler``), and at every main-path tile shape and
-   pyramid level, on the anchors the stereo path gives it on its first chunk
+   stereo run and of one integrated run (``torch.profiler``), and at every
+   main-path tile shape and pyramid level, on the anchors the stereo path
+   gives it on its first chunk
    (recorded by a stand-in for ``ops/image.py``'s ``gather_tiles``) and on
    uniform random anchors: cold (the L2 flushed before each launch; median
    of 30, between CUDA events, and the kernel's own duration by the
@@ -45,7 +61,8 @@
    both must equal K1 exactly), and against the bytes those anchors need:
    the distinct image pixels their tiles cover, the anchors and the tiles.
 
-Prints the kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
+Prints the paths' JSON line (frames/s, accuracy, syncs, uploads), the
+kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
 Any failed phase ends the run with a non-zero exit code.
 """
 
@@ -78,6 +95,10 @@ LEVELS = [(376, 1241), (188, 621), (94, 311), (47, 156)]  # KLT pyramid
 # K1 calls per chunk of the stereo path: match_stereo twice (strip, template,
 # refine template and tile), KLT's template and tile at each of 4 levels
 K1_PER_CHUNK = 16
+# K1 calls per group of windows of the integrated path: the birth frame's
+# match_stereo (4), then at each of the window's 4 later frames KLT's
+# template and tile at 4 levels (8) and the prior-guided match_stereo (4)
+K1_PER_GROUP = 4 + 4 * (8 + 4)
 K1_KERNEL = "gather_tiles_kernel"  # the CUDA kernel's name, as the profiler shows it
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FLUSH_BYTES = 256 << 20  # written before each cold launch: five times the 50 MB L2
@@ -105,6 +126,30 @@ JAX_CROSS_MODAL = {
     "ate_m": [0.05914038608939326, 0.06557040163106549, 0.06372868671084349,
               0.08654515144921493, 0.060980997817120096],
 }
+
+# JAX reference of the integrated VO+BA engine on the full-size clean world,
+# RANSAC seeds 0-2 (tools/jax_unified_reference.py --seeds 0 1 2, on the
+# CPU): every window converged and all 39 motions succeeded for each seed.
+# The port's median ATE after BA over the same seeds is held to 1.5 x JAX's.
+UNIFIED_SEEDS = (0, 1, 2)
+UNIFIED_WCHUNK = 5  # windows per group, as bench.py runs the engine
+K1_PATH_BATCHES = (CHUNK, UNIFIED_WCHUNK)  # K1's batches on the paths, held to plain
+JAX_UNIFIED = {
+    "ate_vo_m": [0.0438190430152971, 0.0426815084665558, 0.03843599574897943],
+    "ate_ba_m": [0.0219930274530603, 0.020904141061700937, 0.015133228675659357],
+}
+# the same tool with --corrupted (seed 0 is the world's gate here)
+JAX_UNIFIED_CORRUPTED = {
+    "ate_vo_m": [0.0602889118883468, 0.08091579595276924, 0.12374846152642437],
+    "ate_ba_m": [0.044318377606174464, 0.05921712774745177, 0.16269734604409916],
+}
+# stream syncs per run while the port still uploaded its small constants on
+# every call (PERF.md section 5; H100 80GB HBM3, 700 W)
+SYNCS_BEFORE = {"stereo": "87-88", "cross_modal": "235"}
+# run_unified_streaming's super-chunks: one group of 5 windows, advance 20
+# frames; on 40 frames its windows cover motions 0-34 as the staged scan's do
+STREAM_GROUPS = 1
+UNIFIED_SHARED_FRAMES = 36
 
 
 def card_line() -> str:
@@ -156,13 +201,15 @@ def random_anchors(gen, batch, n, h, w, dev):
 
 
 def check_gather(dev) -> float:
-    """K1 vs its plain version at every main-path tile shape and level, and
-    at edge cases: 1x1 and 2x3 images, 1x1 and 3x5 tiles (odd areas, which
-    reach the scalar head and tail), batch 1 and n 1 and 7."""
+    """K1 vs its plain version at every main-path tile shape and level, for
+    a chunk of 13 steps and a group of 5 windows, and at edge cases: 1x1
+    and 2x3 images, 1x1 and 3x5 tiles (odd areas, which reach the scalar
+    head and tail), batch 1 and n 1 and 7."""
     from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
 
     gen = torch.Generator().manual_seed(0)
-    cases = [(CHUNK, N_FEATURES, h, w, list(SHAPES)) for h, w in LEVELS]
+    cases = [(batch, N_FEATURES, h, w, list(SHAPES)) for batch in K1_PATH_BATCHES
+             for h, w in LEVELS]
     cases += [(batch, n, h, w, [(1, 1), (3, 5), (22, 22)]) for batch in (1, CHUNK)
               for n in (1, 7) for h, w in ((1, 1), (2, 3), LEVELS[-1])]
     worst = 0.0
@@ -269,12 +316,14 @@ class GatherShim:
         self._im, self._real = im, im.gather_tiles
         self.keep, self.calls = keep, []
         self.counts = {}  # (tile_h, tile_w, H, W) -> calls
+        self.batches = set()  # (batch, tile_h, tile_w, H, W) of the calls
 
     def __call__(self, img, anchors, tile_h, tile_w):
         if len(self.calls) < self.keep:
             self.calls.append((img, anchors, tile_h, tile_w))
         key = (tile_h, tile_w, *img.shape[-2:])
         self.counts[key] = self.counts.get(key, 0) + 1
+        self.batches.add((int(np.prod(img.shape[:-2])), *key))
         return self._real(img, anchors, tile_h, tile_w)
 
     def __enter__(self):
@@ -620,6 +669,50 @@ def small_world_agrees(dev):
     return err
 
 
+def unified_config(rig, **overrides):
+    from uasl_motion_estimation_tpu_torch.models.pipeline import default_config
+    from uasl_motion_estimation_tpu_torch.models.smoother import SmootherConfig
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+
+    pipe = default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), rig.baseline)
+    return SmootherConfig(pipe=pipe._replace(**overrides))
+
+
+def small_unified_agrees(dev) -> float:
+    """192x320, 9 frames (2 windows of 5), 256 features: the integrated
+    VO+BA engine on the card against the port's CPU run (plain kernel
+    versions), both given the same CPU-drawn samples. Equal vo_success,
+    every window converged, VO and refined motions within 1e-3."""
+    from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
+    from uasl_motion_estimation_tpu_torch.models.smoother import unified_system_scan
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rig = small_rig()
+    seq = synthetic.SyntheticStereoSequence(n_frames=9, rig=rig, seed=4)
+    frames = [seq.frame(i) for i in range(9)]
+    cfg = unified_config(rig, max_features=256)
+    cpu_sampler = make_sampler(1, cfg.pipe.vo.n_ransac)
+
+    def sampler(step, valid):
+        return cpu_sampler(step, valid.cpu()).to(valid.device)
+
+    out = {}
+    for d in ("cpu", dev):
+        ls, rs = (torch.from_numpy(np.clip(np.stack([f[k] for f in frames]), 0, 255)
+                                   .astype(np.uint8)).to(d) for k in (0, 1))
+        out[str(d)] = unified_system_scan(ls, rs, sampler, cfg, wchunk=2)
+    a, b = out["cpu"], out[str(dev)]
+    if not (np.array_equal(a.vo_success, b.vo_success) and a.vo_success.all()
+            and b.ba_converged.all()):
+        raise AssertionError(f"integrated engine, card vs CPU: vo_success {b.vo_success} vs "
+                             f"{a.vo_success}, converged {b.ba_converged}")
+    err = max(float(np.abs(getattr(a, k) - getattr(b, k)).max())
+              for k in ("vo_motions", "refined_motions"))
+    if not err < 1e-3:
+        raise AssertionError(f"integrated engine: card and CPU motions differ by {err}")
+    return err
+
+
 def cross_modal_config(rig, **overrides):
     from uasl_motion_estimation_tpu_torch.models.cross_modal import CrossModalConfig
     from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
@@ -639,13 +732,14 @@ def small_cross_modal_agrees(dev) -> tuple[float, float]:
     pixel across a bin edge and nudge the MI-LM's end point)."""
     from uasl_motion_estimation_tpu_torch.models import cross_modal as tcm
     from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
+    from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
     from uasl_motion_estimation_tpu_torch.utils import synthetic
 
     rig = small_rig()
     seq = synthetic.SyntheticStereoSequence(n_frames=6, rig=rig, seed=3, cross_modal=True)
     frames = [seq.frame(i) for i in range(6)]
     cfg = cross_modal_config(rig, matcher=MatcherConfig(max_disparity=64), max_features=256)
-    cpu_sampler = tcm.make_sampler(0, cfg.vo.n_ransac)
+    cpu_sampler = make_sampler(0, cfg.vo.n_ransac, k=tcm.MINIMAL_SET)
 
     def sampler(step, valid):
         return cpu_sampler(step, valid.cpu()).to(valid.device)
@@ -661,6 +755,206 @@ def small_cross_modal_agrees(dev) -> tuple[float, float]:
     if not (scale_err < 1e-2 and rot_err < 1e-3):
         raise AssertionError(f"cross-modal card vs CPU: scale {scale_err}, rotation {rot_err}")
     return scale_err, rot_err
+
+
+def unified_ates(res, gt) -> tuple[float, float]:
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    return (float(metrics.ate_rmse(res.traj_vo[:, :3, 3], gt)),
+            float(metrics.ate_rmse(res.traj_ba[:, :3, 3], gt)))
+
+
+def check_unified(res, name: str) -> None:
+    """A full-size integrated result: N poses, finite, every window's BA
+    converged, every motion's VO succeeded."""
+    if res.traj_ba.shape != (N_FRAMES, 4, 4) or not (
+            np.isfinite(res.traj_ba).all() and np.isfinite(res.pose_cov).all()):
+        raise AssertionError(f"{name}: bad integrated result, shape {res.traj_ba.shape}")
+    if not res.ba_converged.all():
+        raise AssertionError(f"{name}: BA did not converge in windows "
+                             f"{np.nonzero(~res.ba_converged)[0].tolist()}")
+
+
+def integrated_path(dev, rig, frames, gt, ls, rs, card) -> dict:
+    """The integrated VO+BA engine at full width on the clean world (RANSAC
+    seeds 0-2) and on the corrupted world of ``benchmarks/full_system.py``
+    (seed 0), through ``run_unified_system``; K1's launches counted around
+    the first clean run and the corrupted run. Then, on the staged frames,
+    frames/s of ``unified_system_scan`` (median of 3 after a warm-up, as
+    ``bench.py`` times it), the host composition, the stream syncs per run,
+    and K1's calls and device time per run."""
+    from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
+    from uasl_motion_estimation_tpu_torch.models.smoother import (
+        compose_unified, run_unified_system, unified_system_scan, unified_window_starts)
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    cfg = unified_config(rig)
+    out: dict = {"seeds": list(UNIFIED_SEEDS)}
+    kg.GATHER.launches = kmi.MI.launches = kmi.MI.strip_launches = 0
+    t0 = time.perf_counter()
+    res = run_unified_system(frames, cfg, seed=0, wchunk=UNIFIED_WCHUNK, device=dev)
+    out["first_run_s"] = time.perf_counter() - t0
+    out["launches"] = {"gather_tiles": kg.GATHER.launches, "mi_hist": kmi.MI.launches}
+    if out["launches"]["gather_tiles"] <= 0:
+        raise AssertionError("the integrated path never launched K1")
+    per_seed = []
+    for seed in UNIFIED_SEEDS:
+        if seed != UNIFIED_SEEDS[0]:
+            res = run_unified_system(frames, cfg, seed=seed, wchunk=UNIFIED_WCHUNK, device=dev)
+        check_unified(res, f"clean world, seed {seed}")
+        ate_vo, ate_ba = unified_ates(res, gt)
+        per_seed.append({"seed": seed, "ate_vo_m": ate_vo, "ate_ba_m": ate_ba,
+                         "ba_converged": res.ba_converged.tolist(),
+                         "ba_cost": res.ba_cost.tolist(), "n_track_obs": res.n_track_obs.tolist(),
+                         "n_success": int((res.per_frame[:, 16] > 0.5).sum())})
+        print(f"integrated engine, clean world, seed {seed}: ATE VO {ate_vo:.5f} m, after BA "
+              f"{ate_ba:.5f} m (JAX {JAX_UNIFIED['ate_vo_m'][seed]:.5f}, "
+              f"{JAX_UNIFIED['ate_ba_m'][seed]:.5f} m); BA converged "
+              f"{int(res.ba_converged.sum())}/{len(res.ba_converged)}, costs "
+              f"{np.round(res.ba_cost, 4).tolist()}; gated track observations "
+              f"{res.n_track_obs.tolist()}; successful motions {per_seed[-1]['n_success']}/"
+              f"{N_FRAMES - 1}", flush=True)
+        if seed == UNIFIED_SEEDS[0]:
+            res0 = res
+    out["clean"] = per_seed
+    first = per_seed[0]
+    if not first["ate_ba_m"] < min(first["ate_vo_m"], 0.1):
+        raise AssertionError(f"clean world, seed 0: ATE after BA {first['ate_ba_m']} m, "
+                             f"VO {first['ate_vo_m']} m (BA must be lower, and < 0.1 m)")
+    med = float(np.median([r["ate_ba_m"] for r in per_seed]))
+    jax_med = float(np.median(JAX_UNIFIED["ate_ba_m"]))
+    out["median_ate_ba_m"], out["jax_median_ate_ba_m"] = med, jax_med
+    print(f"integrated engine over seeds {list(UNIFIED_SEEDS)}: median ATE after BA {med:.5f} m "
+          f"(JAX {jax_med:.5f} m, gate 1.5x)")
+    if not med <= 1.5 * jax_med:
+        raise AssertionError(f"integrated median ATE {med} m > 1.5 x JAX's {jax_med} m")
+
+    t0 = time.perf_counter()
+    cseq = synthetic.SyntheticStereoSequence(n_frames=N_FRAMES, rig=rig, seed=0,
+                                             corruption=synthetic.CorruptionConfig())
+    cframes = [cseq.frame(i) for i in range(N_FRAMES)]
+    render_s = time.perf_counter() - t0
+    kg.GATHER.launches = kmi.MI.launches = kmi.MI.strip_launches = 0
+    cres = run_unified_system(cframes, cfg, seed=0, wchunk=UNIFIED_WCHUNK, device=dev)
+    out["launches_corrupted"] = kg.GATHER.launches
+    check_unified(cres, "corrupted world")
+    ate_vo, ate_ba = unified_ates(cres, cseq.gt_positions())
+    out["corrupted"] = {"ate_vo_m": ate_vo, "ate_ba_m": ate_ba,
+                        "ba_converged": cres.ba_converged.tolist(),
+                        "n_track_obs": cres.n_track_obs.tolist()}
+    jax_c = JAX_UNIFIED_CORRUPTED
+    print(f"integrated engine, corrupted world (rendered in {render_s:.1f} s), seed 0: ATE VO "
+          f"{ate_vo:.5f} m, after BA {ate_ba:.5f} m (JAX {jax_c['ate_vo_m'][0]:.5f}, "
+          f"{jax_c['ate_ba_m'][0]:.5f} m); K1 launches {kg.GATHER.launches}; "
+          f"gated track observations {cres.n_track_obs.tolist()}", flush=True)
+    if out["launches_corrupted"] <= 0 or not ate_ba < ate_vo:
+        raise AssertionError(f"corrupted world: ATE after BA {ate_ba} m, VO {ate_vo} m, K1 "
+                             f"launches {out['launches_corrupted']}")
+
+    sampler = make_sampler(0, cfg.pipe.vo.n_ransac)
+
+    def run():
+        return unified_system_scan(ls, rs, sampler, cfg, wchunk=UNIFIED_WCHUNK)
+
+    scan = run()
+    times = timed_runs(run)
+    t0 = time.perf_counter()
+    composed = compose_unified(scan, N_FRAMES, cfg)
+    out["compose_ms"] = 1e3 * (time.perf_counter() - t0)
+    if not np.allclose(composed.traj_ba, res0.traj_ba, atol=1e-4):
+        raise AssertionError("the staged scan differs from run_unified_system on the same "
+                             "frames and samples")
+    out["run_s"] = times
+    out["fps"] = (N_FRAMES - 1) / float(np.median(times))
+    out["syncs"] = count_syncs(run)
+    with GatherShim() as shim:
+        run()
+    out["k1_calls"] = sum(shim.counts.values())
+    n_groups = -(-len(unified_window_starts(N_FRAMES, cfg.window, cfg.ba_rate)) // UNIFIED_WCHUNK)
+    if not out["k1_calls"] == out["launches"]["gather_tiles"] == K1_PER_GROUP * n_groups:
+        raise AssertionError(f"the shim saw {out['k1_calls']} K1 calls in an integrated run, "
+                             f"the launch count says {out['launches']['gather_tiles']}; "
+                             f"want {K1_PER_GROUP} per group of windows")
+    # every (batch, tile, image) the path gave K1 is one that check_gather
+    # held against the plain version
+    held = {(b, *tile, *level) for b in K1_PATH_BATCHES for tile in SHAPES for level in LEVELS}
+    if not shim.batches <= held:
+        raise AssertionError(f"the integrated path gave K1 cases check_gather never held: "
+                             f"{sorted(shim.batches - held)}")
+    k1_ms = kernel_times_ms(run, K1_KERNEL, out["k1_calls"])
+    out["k1_ms_per_run"] = None if k1_ms is None else sum(k1_ms)
+    print(f"integrated frames/s {out['fps']:.2f} (median of {times}, unified_system_scan, "
+          f"{UNIFIED_WCHUNK} windows per group, 2 groups); host composition "
+          f"{out['compose_ms']:.2f} ms; {out['syncs']} stream syncs per run; K1 "
+          f"{out['k1_calls']} launches, {out['k1_ms_per_run']} ms of device time per run "
+          f"(torch.profiler); card {card}", flush=True)
+    out["result"] = res0
+    return out
+
+
+def upload_figures(stats: dict) -> dict:
+    up_s, up_b = float(np.sum(stats["upload_s"])), float(np.sum(stats["upload_bytes"]))
+    return {"upload_s": up_s, "upload_mb": up_b / 1e6, "upload_mb_s": up_b / 1e6 / up_s,
+            "uploads": len(stats["upload_s"])}
+
+
+def streaming_paths(dev, rig, frames, pipe, staged_traj, unified_res, card) -> dict:
+    """``run_streaming`` (chunk 13) and ``run_unified_streaming`` (super-
+    chunks of one 5-window group) from host frames: K1's launches around
+    the first run of each, each trajectory against its staged twin on the
+    motions both solve alike (1e-4), frames/s end to end (median of 3) with
+    the in-run upload figures of the median run, and stream syncs."""
+    from uasl_motion_estimation_tpu_torch.models.smoother import run_unified_streaming
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+    cfg = unified_config(rig)
+
+    def vo_stream(stats=None):
+        pipe.reset()
+        return pipe.run_streaming(iter(frames), chunk=CHUNK, stats=stats)
+
+    def unified_stream(stats=None):
+        return run_unified_streaming(iter(frames), cfg, seed=0, wchunk=UNIFIED_WCHUNK,
+                                     groups=STREAM_GROUPS, stats=stats, device=dev)
+
+    out = {}
+    for name, run in (("streaming", vo_stream), ("unified_streaming", unified_stream)):
+        kg.GATHER.launches = kmi.MI.launches = kmi.MI.strip_launches = 0
+        first = run({})
+        launches = kg.GATHER.launches
+        if launches <= 0:
+            raise AssertionError(f"{name} never launched K1")
+        if name == "streaming":
+            err = float(np.abs(first - staged_traj).max())
+        else:
+            n = UNIFIED_SHARED_FRAMES
+            err = max(float(np.abs(first.traj_vo[:n] - unified_res.traj_vo[:n]).max()),
+                      float(np.abs(first.traj_ba[:n] - unified_res.traj_ba[:n]).max()))
+        if not err <= 1e-4:
+            raise AssertionError(f"{name} differs from its staged twin by {err}")
+        times, stats = [], []
+        for _ in range(3):
+            st: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(st)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            stats.append(st)
+        med = int(np.argsort(times)[len(times) // 2])
+        out[name] = {"launches": launches, "max_diff_vs_staged": err, "run_s": times,
+                     "fps_end_to_end": (N_FRAMES - 1) / times[med], "syncs": count_syncs(run),
+                     **upload_figures(stats[med])}
+        r = out[name]
+        print(f"{name}: frames/s end to end {r['fps_end_to_end']:.2f} (median of {times}); "
+              f"uploads in the median run {r['uploads']} x, {r['upload_mb']:.1f} MB in "
+              f"{r['upload_s']:.4f} s ({r['upload_mb_s']:.0f} MB/s, timed in the uploader "
+              f"thread); {r['syncs']} stream syncs per run; K1 launches {launches}; max "
+              f"difference from the staged twin {err:.3g}; card {card}", flush=True)
+    return out
 
 
 def timed_runs(run, n=3) -> list[float]:
@@ -693,8 +987,8 @@ def main() -> int:
     build_kernels()
 
     k1_err = check_gather(dev)
-    print(f"K1 == plain at {len(SHAPES)} tile shapes x {len(LEVELS)} levels and at the edge "
-          f"cases, max abs err {k1_err}")
+    print(f"K1 == plain at {len(SHAPES)} tile shapes x {len(LEVELS)} levels (batches {CHUNK} "
+          f"and {UNIFIED_WCHUNK}) and at the edge cases, max abs err {k1_err}")
     k2_err, ent_err = check_mi(dev)
     print(f"K2 vs plain at the matcher and scale shapes, sentinels 20/25/31/400, P 81/121, "
           f"bins 20/32: max abs err {k2_err:.3g} (tolerance {K2_TOL}); identical patches "
@@ -705,6 +999,8 @@ def main() -> int:
     cm_scale_err, cm_rot_err = small_cross_modal_agrees(dev)
     print(f"small cross-modal world: card vs CPU max relative scale difference "
           f"{cm_scale_err:.3g}, max rotation difference {cm_rot_err:.3g}", flush=True)
+    uni_err = small_unified_agrees(dev)
+    print(f"small integrated world: card vs CPU max motion difference {uni_err:.3g}", flush=True)
 
     t0 = time.perf_counter()
     rig = synthetic.CameraRig()
@@ -747,8 +1043,9 @@ def main() -> int:
     times = timed_runs(stereo_run)
     stereo_syncs = count_syncs(stereo_run)
     print(f"stereo staged frames/s {(N_FRAMES - 1) / float(np.median(times)):.2f} "
-          f"(median of {times}, chunk {CHUNK}); {stereo_syncs} stream syncs per run; "
-          f"card {card}", flush=True)
+          f"(median of {times}, chunk {CHUNK}); {stereo_syncs} stream syncs per run "
+          f"({SYNCS_BEFORE['stereo']} before the constants were cached); card {card}",
+          flush=True)
     # K1's calls in one run (the first chunk's kept for its timings), and its
     # device time over another
     n_chunks = -(-(N_FRAMES - 1) // CHUNK)
@@ -827,8 +1124,17 @@ def main() -> int:
     with GatherShim() as cm_shim:
         cm_run()
     print(f"cross-modal staged frames/s {(N_FRAMES - 1) / float(np.median(times)):.2f} "
-          f"(median of {times}, chunk {CHUNK}); {cm_syncs} stream syncs per run; "
-          f"card {card}", flush=True)
+          f"(median of {times}, chunk {CHUNK}); {cm_syncs} stream syncs per run "
+          f"({SYNCS_BEFORE['cross_modal']} before the constants were cached); card {card}",
+          flush=True)
+
+    # --- integrated VO+BA engine, then the streaming engines ---
+    integ = integrated_path(dev, rig, frames, gt, ls, rs, card)
+    streams = streaming_paths(dev, rig, frames, pipe, traj, integ.pop("result"), card)
+    print(json.dumps({"paths": {
+        "stereo": {"syncs": stereo_syncs, "syncs_before": SYNCS_BEFORE["stereo"]},
+        "cross_modal": {"syncs": cm_syncs, "syncs_before": SYNCS_BEFORE["cross_modal"]},
+        "integrated": integ, **streams}, "card": card}))
 
     # --- kernel timings ---
     tg, event_floor = time_gather(dev, shim.calls)
@@ -862,7 +1168,11 @@ def main() -> int:
         "replaces": "uasl_motion_estimation_tpu/ops/pallas/gather.py:37",
         "launches": stereo_launches["gather_tiles"],
         "launches_by_path": {"stereo": stereo_launches["gather_tiles"],
-                             "cross_modal": cm_launches["gather_tiles"]},
+                             "cross_modal": cm_launches["gather_tiles"],
+                             "integrated": integ["launches"]["gather_tiles"],
+                             "integrated_corrupted": integ["launches_corrupted"],
+                             "streaming": streams["streaming"]["launches"],
+                             "unified_streaming": streams["unified_streaming"]["launches"]},
         "max_abs_err": k1_err,
         "ms": strip["ms"],
         "warm_ms": strip["warm_ms"],
@@ -874,6 +1184,8 @@ def main() -> int:
         "headline": headline,
         "per_run_ms": per_run,
         "per_run_launches": n_calls,
+        "per_run_ms_integrated": integ["k1_ms_per_run"],
+        "per_run_launches_integrated": integ["k1_calls"],
         "kernel_ms": strip["kernel_ms"],
         "event_floor_ms": event_floor,
         "timings": {name: {key: r[key] for key in (
@@ -886,7 +1198,8 @@ def main() -> int:
         "replaces": "uasl_motion_estimation_tpu/ops/pallas/mi.py:34",
         "launches": cm_launches["mi_hist"],
         "launches_by_path": {"stereo": stereo_launches["mi_hist"],
-                             "cross_modal": cm_launches["mi_hist"]},
+                             "cross_modal": cm_launches["mi_hist"],
+                             "integrated": integ["launches"]["mi_hist"]},
         "max_abs_err": max(k2_err, strip_t["max_abs_err"]),
         "ms": strip_t["ms"],
         "plain_ms": strip_t["plain_ms"],

@@ -208,6 +208,7 @@ def test_cross_modal_session_on_card_matches_cpu():
     from uasl_motion_estimation_tpu_torch.models import cross_modal as tcm
     from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
     from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
+    from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
     from uasl_motion_estimation_tpu_torch.models.scale import ScaleConfig
     from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
     from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
@@ -221,7 +222,7 @@ def test_cross_modal_session_on_card_matches_cpu():
     cfg = tcm.CrossModalConfig(vo=MonoVOParams(intr=intr),
                                scale=ScaleConfig(intr=intr, baseline=rig.baseline),
                                matcher=MatcherConfig(max_disparity=64), max_features=256)
-    cpu_sampler = tcm.make_sampler(0, cfg.vo.n_ransac)
+    cpu_sampler = make_sampler(0, cfg.vo.n_ransac, k=tcm.MINIMAL_SET)
 
     def sampler(step, valid):
         return cpu_sampler(step, valid.cpu()).to(valid.device)

@@ -99,6 +99,7 @@ def test_klt_batch_freezes_each_problem(frames, feats):
         alone = tfe.klt_track(prev[b], nxt[b], pts[b], val[b], init_next=init[b])
         np.testing.assert_array_equal(batched.valid[b].numpy(), alone.valid.numpy())
         np.testing.assert_allclose(batched.pts[b].numpy(), alone.pts.numpy(), atol=1e-4)
+        np.testing.assert_array_equal(batched.n_iter[b].numpy(), alone.n_iter.numpy())
 
 
 def test_quad_match_frames(frames):

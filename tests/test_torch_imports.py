@@ -1,7 +1,9 @@
 """The port never imports jax and never loads a file of the JAX package,
 under any module name. Checked in a fresh interpreter that imports the port
-and runs ``OdometryPipeline.run_staged`` and ``run_cross_modal_staged`` on
-the CPU, then looks at every loaded module's name and ``__file__``."""
+and runs ``OdometryPipeline.run_staged`` and ``run_streaming``,
+``run_cross_modal_staged`` and the unified VO+BA engine
+(``run_unified_system``) on the CPU, then looks at every loaded module's
+name and ``__file__``."""
 
 import subprocess
 import sys
@@ -23,6 +25,7 @@ from uasl_motion_estimation_tpu_torch.models.cross_modal import (
 from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
 from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
 from uasl_motion_estimation_tpu_torch.models.scale import ScaleConfig
+from uasl_motion_estimation_tpu_torch.models.smoother import SmootherConfig, run_unified_system
 from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
 rig = synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
                           height=96, width=160)
@@ -33,6 +36,13 @@ pipe = OdometryPipeline(cfg, seed=0, device="cpu")
 ls, rs = pipe.stage_frames([seq.frame(i) for i in range(3)])
 traj = pipe.run_staged(ls, rs, chunk=2)
 assert traj.shape == (3, 4, 4) and np.isfinite(traj).all()
+useq = synthetic.SyntheticStereoSequence(n_frames=5, rig=rig, seed=0, tex_size=256)
+uframes = [useq.frame(i) for i in range(5)]
+ures = run_unified_system(uframes, SmootherConfig(pipe=cfg, ba_max_iter=3), device="cpu")
+assert ures.traj_ba.shape == (5, 4, 4) and np.isfinite(ures.pose_cov).all()
+pipe.reset()
+straj = pipe.run_streaming(iter(uframes), chunk=2)
+assert straj.shape == (5, 4, 4) and np.isfinite(straj).all()
 cross = synthetic.SyntheticStereoSequence(n_frames=3, rig=rig, seed=3, tex_size=256,
                                           cross_modal=True)
 intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)

@@ -18,11 +18,13 @@ import pytest
 import torch
 
 from uasl_motion_estimation_tpu.models import pipeline as jpipe
+from uasl_motion_estimation_tpu.models import smoother as jsmoother
 from uasl_motion_estimation_tpu.models.stereo_vo import _sample_hypotheses as jax_sample
 from uasl_motion_estimation_tpu.ops.geometry import Intrinsics as JaxIntrinsics
 from uasl_motion_estimation_tpu_torch.utils import metrics, synthetic
 from uasl_motion_estimation_tpu_torch.config import from_reference_config
 from uasl_motion_estimation_tpu_torch.models import pipeline as tpipe
+from uasl_motion_estimation_tpu_torch.models import smoother as tsmoother
 from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
 
 torch.set_num_threads(1)
@@ -62,6 +64,14 @@ def test_config_carries_across(world):
                                 RIG.baseline)._replace(max_features=256)
     assert cfg == want
     assert isinstance(cfg.vo.intr1, Intrinsics)
+    # the unified engine's configuration, with every field off its default
+    jsm = jsmoother.SmootherConfig(pipe=jcfg, window=6, ba_rate=3, n_fixed=2, ba_min_obs=3,
+                                   ba_max_iter=7, huber_delta=2.0, track_gate_px=4.0,
+                                   min_frame_obs=9, track_mode="template", install_disc_px=3.0,
+                                   install_disc_depth_m=12.0)
+    port = from_reference_config(jsm)
+    assert isinstance(port, tsmoother.SmootherConfig) and port.pipe == want
+    assert port._asdict() == {**jsm._asdict(), "pipe": want}
 
 
 @pytest.mark.parametrize("chunk", [3, 7])
@@ -95,3 +105,27 @@ def test_own_sampler_ate_and_engines_agree(world):
     u8 = [tuple(np.clip(x, 0, 255).astype(np.uint8) for x in f) for f in frames]
     per_frame = pipe.run(u8)
     np.testing.assert_allclose(per_frame, staged, atol=1e-4)
+
+
+def test_streaming_engine_agrees_with_staged_and_per_frame(world):
+    """run_streaming (chunk 3: two full chunks and a padded tail of one
+    step) solves every step with the staged engine's samples: the same
+    trajectory as run_staged and run, with the uploads accounted in-run;
+    run_batched and run_sequence are its and run_staged's aliases."""
+    _, frames, jcfg, _ = world
+    pipe = tpipe.OdometryPipeline(from_reference_config(jcfg), seed=0, device="cpu")
+    stats: dict = {}
+    streamed = pipe.run_streaming(iter(frames), chunk=3, stats=stats)
+    assert streamed.shape == (N_FRAMES, 4, 4) and pipe.frame_idx == N_FRAMES
+    assert len(stats["upload_s"]) == 3
+    assert stats["upload_bytes"] == [2 * 4 * RIG.height * RIG.width] * 3
+    pipe.reset()
+    ls, rs = pipe.stage_frames(frames)
+    np.testing.assert_allclose(streamed, pipe.run_staged(ls, rs, chunk=3), atol=1e-4)
+    pipe.reset()
+    u8 = [tuple(np.clip(x, 0, 255).astype(np.uint8) for x in f) for f in frames]
+    np.testing.assert_allclose(streamed, pipe.run(u8), atol=1e-4)
+    pipe.reset()
+    np.testing.assert_array_equal(pipe.run_batched(frames, chunk=3), streamed)
+    pipe.reset()
+    np.testing.assert_allclose(pipe.run_sequence(frames, chunk=3), streamed, atol=1e-4)

@@ -1,8 +1,9 @@
 """Carry a configuration of the JAX package across to the port.
 
 The system has no weights; its state is the configuration NamedTuples.
-``from_reference_config`` walks a JAX ``PipelineConfig`` or
-``CrossModalConfig`` (or any of their parts) through ``_asdict()`` and rebuilds it from the port's NamedTuples of
+``from_reference_config`` walks a JAX ``PipelineConfig``,
+``CrossModalConfig``, ``SmootherConfig`` or ``BAConfig`` (or any of their
+parts) through ``_asdict()`` and rebuilds it from the port's NamedTuples of
 the same names, so both sides run the identical configuration. It reads the
 tuples only and never imports jax.
 """
@@ -14,13 +15,15 @@ from .models.frontend import KLTConfig, MatcherConfig
 from .models.mono_vo import MonoVOParams
 from .models.pipeline import PipelineConfig
 from .models.scale import ScaleConfig
+from .models.smoother import SmootherConfig
 from .models.stereo_vo import StereoVOParams
 from .ops.geometry import Intrinsics
+from .solvers.ba import BAConfig
 from .solvers.lm import LMConfig
 
 _PORT_TYPES = {t.__name__: t for t in (
     PipelineConfig, StereoVOParams, Intrinsics, MatcherConfig, KLTConfig, LMConfig,
-    CrossModalConfig, MonoVOParams, ScaleConfig)}
+    CrossModalConfig, MonoVOParams, ScaleConfig, SmootherConfig, BAConfig)}
 
 
 def from_reference_config(cfg):

@@ -22,7 +22,7 @@ the same samples.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, NamedTuple
+from typing import Iterable, NamedTuple
 
 import numpy as np
 import torch
@@ -34,10 +34,9 @@ from ..solvers.lm import StopCondition
 from . import frontend as fe
 from .mono_vo import MonoVOParams, mono_vo_solve
 from .scale import ScaleConfig, estimate_scale
-from .stereo_vo import _sample_hypotheses
+from .pipeline import Sampler, make_sampler
 
-# sampler(step, valid (N,) bool) -> (n_ransac, 8) int64 match-index samples
-Sampler = Callable[[int, torch.Tensor], torch.Tensor]
+MINIMAL_SET = 8  # matches per pencil 8-point hypothesis: make_sampler(..., k=MINIMAL_SET)
 
 
 class CrossModalConfig(NamedTuple):
@@ -74,17 +73,6 @@ class CrossModalResult(NamedTuple):
     scales: np.ndarray  # (N-1,) per-step metric scale
     s0: np.ndarray  # (N-1,) MI-matcher inits
     records: list  # per-frame diagnostic dicts
-
-
-def make_sampler(seed: int, n_ransac: int) -> Sampler:
-    """Gumbel-top-8 samples from a generator keyed on (seed, global step)."""
-
-    def sample(step: int, valid: torch.Tensor) -> torch.Tensor:
-        gen = torch.Generator(device=valid.device)
-        gen.manual_seed((seed << 32) + step)
-        return _sample_hypotheses(gen, n_ransac, valid, k=8)
-
-    return sample
 
 
 def _session_step(
@@ -248,7 +236,7 @@ def run_cross_modal_staged(
         ls, rs = frames
     else:
         ls, rs = _stage(frames, dev)
-    sampler = sampler or make_sampler(seed, cfg.vo.n_ransac)
+    sampler = sampler or make_sampler(seed, cfg.vo.n_ransac, k=MINIMAL_SET)
     packed = _pack(cross_modal_sequence_scan(ls, rs, 0, sampler, cfg, chunk))
 
     pose = np.eye(4)
@@ -282,7 +270,7 @@ def run_cross_modal(
     each step warm-started from the previous frame's scale. Failed frames
     keep the last pose; failed scales inherit the previous scale."""
     dev = setup_device(device)
-    sampler = sampler or make_sampler(seed, cfg.vo.n_ransac)
+    sampler = sampler or make_sampler(seed, cfg.vo.n_ransac, k=MINIMAL_SET)
     pose = np.eye(4)
     traj = [pose.copy()]
     scales, s0s, records = [], [], []

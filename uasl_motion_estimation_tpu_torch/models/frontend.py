@@ -207,6 +207,7 @@ class KLTResult(NamedTuple):
     pts: torch.Tensor  # (..., N, 2) tracked locations
     valid: torch.Tensor  # (..., N) bool
     residual: torch.Tensor  # (..., N) mean abs photometric error
+    n_iter: torch.Tensor  # (..., n_levels) int32 iterations run per level, coarsest first
 
 
 def klt_track(
@@ -248,6 +249,7 @@ def klt_track(
 
     eig_ok = torch.ones_like(valid_prev)
     lvl0 = None
+    n_iters = []
 
     for level in range(cfg.n_levels - 1, -1, -1):
         p_prev = pts_prev / 2.0 ** level
@@ -304,6 +306,7 @@ def klt_track(
             d = torch.where(active[..., None, None], dnew, d)
             delta = torch.where(active, torch.amax(live, dim=(-2, -1)), delta)
             n_it = n_it + active.to(torch.int32)
+        n_iters.append(n_it)
         if level > 0:
             d = d * 2.0
 
@@ -327,7 +330,8 @@ def klt_track(
         & im.patch_in_bounds(pts_next, r + 1, h, w)
         & im.patch_in_bounds(pts_prev, r + 1, h, w)
     )
-    return KLTResult(pts=pts_next, valid=valid, residual=residual)
+    return KLTResult(pts=pts_next, valid=valid, residual=residual,
+                     n_iter=torch.stack(n_iters, dim=-1))
 
 
 class QuadMatches(NamedTuple):

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import const
 from ..ops import geometry as geo
 from ..ops import lie
 from ..ops import smallalg as sal
@@ -80,10 +81,6 @@ def _det3(M: torch.Tensor) -> torch.Tensor:
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
-def _const(rows, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(rows, dtype=like.dtype, device=like.device)
-
-
 def _normalize(uv: torch.Tensor, intr: geo.Intrinsics) -> torch.Tensor:
     """Pixel -> normalized camera coordinates."""
     x = (uv[..., 0] - intr.cu) / intr.fu
@@ -94,7 +91,7 @@ def _normalize(uv: torch.Tensor, intr: geo.Intrinsics) -> torch.Tensor:
 def _project_essential(F: torch.Tensor) -> torch.Tensor:
     """Nearest essential matrix: singular values -> (1, 1, 0)."""
     U, _, Vt = sal.svd3_rotation(F)
-    return torch.matmul(U * _const([1.0, 1.0, 0.0], F), Vt)
+    return torch.matmul(U * const([1.0, 1.0, 0.0], F.dtype, F.device), Vt)
 
 
 def _nullspace_pair(p1: torch.Tensor, p2: torch.Tensor, w: torch.Tensor | None = None
@@ -172,7 +169,7 @@ def _pencil_candidates(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     essential manifold (7-point-style, planar-safe)."""
     F0, F1 = _nullspace_pair(p1, p2)
     d = torch.stack([_det3(a * F0 + (1.0 - a) * F1) for a in _PENCIL_A], dim=-1)
-    coeff = torch.matmul(d, _const(_VAND_INV.T.tolist(), d))  # [c3, c2, c1, c0]
+    coeff = torch.matmul(d, const(_VAND_INV.T.tolist(), d.dtype, d.device))  # [c3, c2, c1, c0]
     roots = _cubic_roots_real(coeff[..., 0], coeff[..., 1], coeff[..., 2], coeff[..., 3])
     a = roots[..., None, None]
     return _project_essential(a * F0[..., None, :, :] + (1.0 - a) * F1[..., None, :, :])
@@ -213,8 +210,9 @@ def _triangulate_two_view(R, t, p1, p2):
 
 def _tangent_basis(t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 2) orthonormal basis of the plane perpendicular to unit t."""
-    ref = torch.where((torch.abs(t[..., 2]) < 0.9)[..., None], _const([0.0, 0.0, 1.0], t),
-                      _const([1.0, 0.0, 0.0], t))
+    ref = torch.where((torch.abs(t[..., 2]) < 0.9)[..., None],
+                      const([0.0, 0.0, 1.0], t.dtype, t.device),
+                      const([1.0, 0.0, 0.0], t.dtype, t.device))
     b1 = torch.linalg.cross(t, ref, dim=-1)
     b1 = b1 / torch.clamp(torch.linalg.norm(b1, dim=-1, keepdim=True), min=1e-12)
     b2 = torch.linalg.cross(t, b1, dim=-1)
@@ -290,7 +288,7 @@ def _decompose_E(E: torch.Tensor):
     U, _, Vt = sal.svd3_rotation(E)
     U = U * torch.sign(_det3(U))[..., None, None]
     Vt = Vt * torch.sign(_det3(Vt))[..., None, None]
-    W = _const([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], E)
+    W = const([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], E.dtype, E.device)
     R1 = torch.matmul(torch.matmul(U, W), Vt)
     R2 = torch.matmul(torch.matmul(U, W.T), Vt)
     t = U[..., :, 2]

@@ -7,14 +7,20 @@ composed on the host in float64.
 The staged engine keeps the JAX design: frames go to the device once as
 uint8; each group of ``chunk`` steps converts its ``chunk + 1`` frames to
 f32 and builds their left pyramids ONCE, then runs all its steps as one
-batch (the leading dim that ``vmap`` gives in JAX). RANSAC samples for step
-``i`` come from a generator keyed on the global step index, so the
-per-frame and staged engines solve step ``i`` with the same samples.
+batch (the leading dim that ``vmap`` gives in JAX). The streaming engine
+runs the same scan on chunks uploaded by a background thread
+(``stream_stacks``) while the previous chunk computes. RANSAC samples for
+step ``i`` come from a generator keyed on the global step index, so the
+per-frame, staged and streaming engines solve step ``i`` with the same
+samples.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, NamedTuple
+import queue
+import threading
+import time
+from typing import Any, Callable, Iterable, Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -23,10 +29,110 @@ from ..device import setup_device
 from ..ops import geometry as geo
 from ..ops import image as im
 from . import frontend as fe
-from .stereo_vo import StereoVOParams, _sample_hypotheses, stereo_vo_solve
+from .stereo_vo import StereoVOParams, _sample_hypotheses, sample_generator, stereo_vo_solve
 
-# sampler(step, valid (N,) bool) -> (n_ransac, 3) int64 match-index triples
+# sampler(step, valid (N,) bool) -> (n_ransac, k) int64 match-index samples
 Sampler = Callable[[int, torch.Tensor], torch.Tensor]
+
+
+def make_sampler(seed: int, n_ransac: int, k: int = 3) -> Sampler:
+    """Gumbel-top-k samples from a generator keyed on (seed, global step):
+    every engine solves step i with the same samples."""
+
+    def sample(step: int, valid: torch.Tensor) -> torch.Tensor:
+        return _sample_hypotheses(sample_generator(seed, step, valid.device), n_ransac, valid,
+                                  k=k)
+
+    return sample
+
+
+def stream_stacks(stacks: Iterable[tuple[list, Any]], device: torch.device,
+                  prefetch: int = 2, stats: dict | None = None
+                  ) -> Iterator[tuple[torch.Tensor, torch.Tensor, Any]]:
+    """Upload host frame stacks in a background thread while the caller
+    computes on the previous one.
+
+    ``stacks`` yields (frames, meta): a list of (left, right) uint8 (H, W)
+    arrays and anything the caller wants back with it; it is consumed in the
+    uploader thread. Each stack is packed into a pinned host tensor and
+    copied on a copy stream with ``non_blocking=True``; the caller's stream
+    waits on the copy's event before it reads. At most ``prefetch`` stacks
+    wait in the queue. Yields (lefts, rights, meta) with lefts and rights
+    (n, H, W) uint8 on ``device``. ``stats``, when given, gets per stack
+    ``upload_s`` (from packing to the copy's completion, timed in the
+    uploader thread, so it overlaps compute) and ``upload_bytes``."""
+    cuda = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if cuda else None
+    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+    if stats is not None:
+        stats.setdefault("upload_s", [])
+        stats.setdefault("upload_bytes", [])
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def upload(stack):
+        t0 = time.perf_counter()
+        h, w = stack[0][0].shape
+        host = torch.empty((2, len(stack), h, w), dtype=torch.uint8, pin_memory=cuda)
+        arr = host.numpy()
+        for i, (left, right) in enumerate(stack):
+            arr[0, i] = left
+            arr[1, i] = right
+        done = None
+        if cuda:
+            with torch.cuda.device(device), torch.cuda.stream(copy_stream):
+                staged = host.to(device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+        else:
+            staged = host
+        if stats is not None:
+            if done is not None:
+                done.synchronize()
+            stats["upload_s"].append(time.perf_counter() - t0)
+            stats["upload_bytes"].append(staged.numel())
+        return staged, done
+
+    def uploader():
+        try:
+            for stack, meta in stacks:
+                if not put((*upload(stack), meta)):
+                    return
+        except Exception as e:  # handed to the consumer, which raises it
+            put(e)
+            return
+        put(None)
+
+    thread = threading.Thread(target=uploader, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, Exception):
+                raise item
+            staged, done, meta = item
+            if done is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(done)
+                staged.record_stream(stream)
+            yield staged[0], staged[1], meta
+    finally:
+        stop.set()
+        thread.join()
+
+
+def _u8(frame) -> np.ndarray:
+    return np.clip(np.asarray(frame), 0, 255).astype(np.uint8)
 
 
 class PipelineConfig(NamedTuple):
@@ -132,15 +238,9 @@ class OdometryPipeline:
         self.seed = seed
         self.logger = logger
         self.device = setup_device(device)
+        self._sample = make_sampler(seed, cfg.vo.n_ransac)
         self.sampler = sampler or self._sample
         self.reset()
-
-    def _sample(self, step: int, valid: torch.Tensor) -> torch.Tensor:
-        """Gumbel-top-3 samples from a generator keyed on (seed, global
-        step): every engine solves step i with the same samples."""
-        gen = torch.Generator(device=valid.device)
-        gen.manual_seed((self.seed << 32) + step)
-        return _sample_hypotheses(gen, self.cfg.vo.n_ransac, valid)
 
     def reset(self):
         self.pose = np.eye(4)  # cam-to-world of current frame
@@ -216,6 +316,57 @@ class OdometryPipeline:
         self._chain(packed)
         self.frame_idx += n
         return np.asarray(self.trajectory)
+
+    def run_streaming(self, frames: Iterable[tuple[np.ndarray, np.ndarray]], chunk: int = 16,
+                      prefetch: int = 2, stats: dict | None = None) -> np.ndarray:
+        """Streaming mode: upload/compute overlap and bounded device memory.
+
+        ``frames`` is any iterable of (left, right) pairs. A background
+        thread packs (chunk + 1)-frame uint8 stacks, the last frame of one
+        chunk leading the next, and uploads them (``stream_stacks``); each
+        chunk's steps run as one ``run_staged`` group as soon as its stack
+        is on the device. The tail stack is padded to the same shape by
+        repeating its last frame, and its padded steps are dropped before
+        the scan (they could only give identity motions). Samples are keyed
+        on global step indices, so the trajectory is ``run_staged``'s.
+        ``stats``, when given, gets the in-run ``upload_s`` and
+        ``upload_bytes`` per chunk. Returns (N, 4, 4) cam-to-world poses."""
+
+        def stacks():
+            boundary = None  # last frame of the previous chunk
+            buf: list = []
+            want = chunk + 1
+            for f in frames:
+                buf.append((_u8(f[0]), _u8(f[1])))
+                if len(buf) == want:
+                    stack = ([boundary] if boundary is not None else []) + buf
+                    yield stack, chunk
+                    boundary, buf, want = stack[-1], [], chunk
+            if buf and (boundary is not None or len(buf) > 1):
+                stack = ([boundary] if boundary is not None else []) + buf
+                yield stack + [stack[-1]] * (chunk + 1 - len(stack)), len(stack) - 1
+
+        packed, n_frames, step = [], 0, self.frame_idx
+        for ls, rs, real in stream_stacks(stacks(), self.device, prefetch, stats):
+            packed.append(_vo_scan_packed(ls[:real + 1], rs[:real + 1], step, self.sampler,
+                                          self.cfg, chunk))
+            n_frames = (n_frames or 1) + real
+            step += real
+        if packed:
+            self._chain(torch.cat(packed).cpu().numpy())
+        self.frame_idx += n_frames
+        return np.asarray(self.trajectory)
+
+    def run_sequence(self, frames: list[tuple[np.ndarray, np.ndarray]], chunk: int = 8
+                     ) -> np.ndarray:
+        """Alias: ``stage_frames`` then ``run_staged``."""
+        ls, rs = self.stage_frames(frames)
+        return self.run_staged(ls, rs, chunk=chunk)
+
+    def run_batched(self, frames: list[tuple[np.ndarray, np.ndarray]], chunk: int = 16
+                    ) -> np.ndarray:
+        """Alias for ``run_streaming``."""
+        return self.run_streaming(frames, chunk=chunk)
 
 
 def default_config(

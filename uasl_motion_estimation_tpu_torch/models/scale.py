@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import const
 from ..ops import geometry as geo
 from ..ops import image as im
 from ..ops import similarity as sim
@@ -134,7 +135,7 @@ def estimate_scale(
         okf = ok.to(mi.dtype)
         res = mi * weight * okf
         # finite-difference MI wrt a 1-px epipolar shift of the right patch
-        uv_r_plus = uv_r + torch.tensor([p.fd_step, 0.0], dtype=uv_r.dtype, device=uv_r.device)
+        uv_r_plus = uv_r + const([p.fd_step, 0.0], uv_r.dtype, uv_r.device)
         mi_plus, _, ok_p = _patch_mi_and_weight(left, right, abs_gx, uv_l, uv_r_plus, valid, p)
         z = torch.clamp(s[..., None] * pts3[..., 2], min=1e-6)
         duds = p.intr.fu * p.baseline / z  # optimisation.cpp:473

@@ -22,6 +22,7 @@ from typing import NamedTuple, Sequence, Union
 
 import torch
 
+from ..device import const
 from ..ops import geometry as geo
 from ..ops import lie
 from ..ops import pnp
@@ -139,6 +140,19 @@ def _sq_reproj_error(state, pts3, obs, p: StereoVOParams) -> torch.Tensor:
     """(..., N) squared reprojection error over the 4 residuals (cpp:103-110)."""
     res = _residuals(state, pts3, obs, p)
     return torch.sum(res * res, dim=-1)
+
+
+def sample_generator(seed: int, step: int, device: torch.device | str) -> torch.Generator:
+    """A generator keyed on (seed, global step) for the RANSAC samples of
+    that step. The card's Philox takes the whole 64-bit key (seed << 32) +
+    step; the CPU's Mersenne Twister keeps only a seed's low 32 bits, so
+    there the seed is mixed into them (seed 0 keys alike either way)."""
+    gen = torch.Generator(device=device)
+    if gen.device.type == "cpu":
+        gen.manual_seed((seed * 0x9E3779B1 + step) & 0xFFFFFFFF)
+    else:
+        gen.manual_seed((seed << 32) + step)
+    return gen
 
 
 def _sample_hypotheses(key: Key, n_ransac: int, valid: torch.Tensor, k: int = 3
@@ -278,7 +292,7 @@ def stereo_vo_solve(
     JJ, _, _ = _normal_eq(state, pts3, obs, w_final, p)
     sigma2 = torch.clamp(result.cost, min=1e-8)
     cov_state = sigma2[..., None, None] * torch.linalg.inv_ex(JJ + 1e-9 * eye6)[0]
-    perm = torch.tensor([3, 4, 5, 0, 1, 2], device=dev)
+    perm = const([3, 4, 5, 0, 1, 2], torch.int64, dev)
     cov = cov_state[..., perm, :][..., :, perm]
     cov = torch.where(success[..., None, None], cov, 1e2 * eye6)
 
@@ -291,6 +305,6 @@ def _motion_matrix(state: torch.Tensor) -> torch.Tensor:
     """getMotion (cpp:331-342): Rt = [euler_to_R(state).T | t], (..., 4, 4)."""
     R = lie.euler_to_R(state[..., :3]).transpose(-1, -2)
     top = torch.cat([R, state[..., 3:6, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=state.dtype,
-                          device=state.device).expand(*state.shape[:-1], 1, 4)
+    bottom = const([0.0, 0.0, 0.0, 1.0], state.dtype, state.device).expand(
+        *state.shape[:-1], 1, 4)
     return torch.cat([top, bottom], dim=-2)

@@ -1,12 +1,13 @@
 """Projective geometry: the subset of ``uasl_motion_estimation_tpu/ops/geometry.py``
 the ported paths need (homogeneous coordinates, pinhole intrinsics,
-projection, rectified-stereo triangulation). Points are ``(..., 2|3)``
-tensors."""
+projection, rectified-stereo triangulation) and its float64 numpy
+covariance transport. Points are ``(..., 2|3)`` tensors."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -62,3 +63,40 @@ def triangulate_disparity(
     y = (left_uv[..., 1] - intr_left.cv) * baseline / d
     z = intr_left.fu * baseline / d
     return torch.stack([x, y, z], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Host-side (numpy, float64) covariance transport on the [dt, dtheta] right
+# tangent (poseMultiplicationWithCovariance / invertPoseWithCovariance
+# semantics, feature_types.cpp:172-241). The engines compose their pose
+# chains on the host in float64, and these carry the covariance with them.
+# ---------------------------------------------------------------------------
+
+
+def se3_adjoint_np(T: np.ndarray) -> np.ndarray:
+    """(4, 4) -> (6, 6) adjoint on the [dt, dtheta] right tangent:
+    T exp(xi) = exp(Ad_T xi) T, with Ad = [[R, [t]x R], [0, R]]."""
+    R = T[:3, :3]
+    t = T[:3, 3]
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]],
+                  dtype=np.float64)
+    A = np.zeros((6, 6))
+    A[:3, :3] = R
+    A[:3, 3:] = tx @ R
+    A[3:, 3:] = R
+    return A
+
+
+def compose_with_covariance_np(Ta: np.ndarray, Ca: np.ndarray, Tb: np.ndarray,
+                               Cb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(Ta @ Tb, covariance) under independent right-tangent covariances:
+    C = Ad(Tb^-1) Ca Ad(Tb^-1)^T + Cb."""
+    J = se3_adjoint_np(np.linalg.inv(Tb))
+    return Ta @ Tb, J @ Ca @ J.T + Cb
+
+
+def invert_with_covariance_np(T: np.ndarray, C: np.ndarray
+                              ) -> tuple[np.ndarray, np.ndarray]:
+    """(T^-1, Ad(T) C Ad(T)^T)."""
+    A = se3_adjoint_np(T)
+    return np.linalg.inv(T), A @ C @ A.T

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import const
 from .kernels.gather import gather_tiles
 
 
@@ -134,7 +135,7 @@ def detect_features_grid(
     ys = torch.arange(h, device=img.device)[:, None]
     xs = torch.arange(w, device=img.device)[None, :]
     in_border = (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
-    neg_inf = torch.tensor(-torch.inf, dtype=raw.dtype, device=raw.device)
+    neg_inf = const(-torch.inf, raw.dtype, raw.device)
     resp = torch.where((raw >= pooled) & in_border, raw, neg_inf)
 
     gh, gw = _grid_shape(h, w, max_features)

@@ -1,5 +1,6 @@
 """Rotation algebra: the subset of ``uasl_motion_estimation_tpu/ops/lie.py``
-the ported paths need (Euler angles, their derivatives, skew, so3_exp).
+the ported paths need (Euler angles, their derivatives, skew, so3_exp, and
+so3_log with the quaternion helpers it rests on).
 
 Conventions are the reference's: ``(roll, pitch, yaw)`` about (x, y, z) and
 ``R = Rx(roll) @ Ry(pitch) @ Rz(yaw)`` in the row convention of
@@ -78,13 +79,64 @@ def R_to_euler(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([roll, pitch, yaw], dim=-1)
 
 
+def _safe_sqrt(x2: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
+    """sqrt with the argument itself replaced by 1 where ``small``, so no
+    NaN tangent leaks through a later ``where`` (autodiff-safe at 0)."""
+    return torch.sqrt(torch.where(small, torch.ones_like(x2), x2))
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def R_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (w, x, y, z) with
+    w >= 0, branch-free: the trace method's four candidates, the one with
+    the largest pivot kept."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                          1.0 - m00 - m11 + m22], dim=-1)
+    idx = torch.argmax(pivots, dim=-1)  # first maximum, as jnp.argmax
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., branch, 4)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    q = quat_normalize(q)
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> rotation vector (log_map_Quat), shortest arc, with
+    a series for the small angle."""
+    q = quat_normalize(q)
+    q = torch.where(q[..., :1] < 0, -q, q)
+    w = torch.clamp(q[..., 0], -1.0, 1.0)
+    vn2 = torch.sum(q[..., 1:] * q[..., 1:], dim=-1)
+    small = vn2 < _EPS
+    vn = _safe_sqrt(vn2, small)
+    theta = 2.0 * torch.atan2(vn, w)
+    # small angle: theta/vn -> 2/w * (1 - vn2/(3 w^2)), exact to O(vn2^2)
+    scale = torch.where(small, 2.0 / w * (1.0 - vn2 / (3.0 * w * w)), theta / vn)
+    return q[..., 1:] * scale[..., None]
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Matrix log: (..., 3, 3) rotation -> (..., 3) rotation vector (log_map_Mat)."""
+    return quat_log(R_to_quat(R))
+
+
 def so3_exp(v: torch.Tensor) -> torch.Tensor:
     """Rodrigues: rotation vector (..., 3) -> (..., 3, 3) (exp_map_Mat,
     rotation_utils.h:191-218), with the JAX version's Taylor branch below
     theta^2 = 1e-8."""
     theta2 = torch.sum(v * v, dim=-1)
     small = theta2 < _EPS
-    safe_t = torch.sqrt(torch.where(small, torch.ones_like(theta2), theta2))
+    safe_t = _safe_sqrt(theta2, small)
     A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(safe_t) / safe_t)
     B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(safe_t)) / (safe_t * safe_t))
     K = skew(v)
