@@ -42,10 +42,31 @@
    - the streaming engines from host frames: ``run_streaming`` (chunk 13)
      and ``run_unified_streaming`` (super-chunks of one 5-window group): K1;
      each trajectory equal to its staged twin's to 1e-4 on the motions both
-     solve with the same windows.
+     solve with the same windows;
+   - staged stereo VO with ``detector="topk"`` on the stereo world, RANSAC
+     seeds 0-4: K1, all steps, the median ATE within 1.5x the JAX
+     reference's (JAX's own median is 0.149 m, so the grid detector's 0.1 m
+     bound does not apply); the
+     per-frame cross-modal loop ``run_cross_modal``
+     on the cross-modal world, once: K1 and K2, all 39 steps, median scale
+     error under 2 %;
+   - the monocular engine on ``benchmarks/extra_configs.py``'s bench_mono
+     world (480x752, 13 frames, seed 3, left camera, 256 top-k features,
+     2 px threshold, initial speed 0.8): ``run_mono_staged`` (chunk 8) with
+     ``pencil8``, ``5point`` and ``hybrid``, the hybrid again with every
+     step escalated (``FORCED_RATIO``), and the per-frame
+     ``MonoOdometryPipeline`` with ``pencil8``: K1 in each, every K1 call
+     held to its plain version; all 12 steps succeed and each ATE lies
+     within ``MONO_ATE_TOL`` of the JAX reference's on the same run
+     (``tools/jax_mono_reference.py``; on this world it does not depend on
+     the RANSAC seed). Then the exact 5-point at the
+     path's shape (8 steps x 200 samples) on the card against its CPU run
+     on the same nullspace basis, each held to the float64 solution of
+     that basis (its float32 roots are noisy there), with the solve's time
+     per chunk and the SVD's time, kernels and stream syncs.
 6. Times each path's frames/s (median of 3 after the measured run; the
-   streaming engines end to end, with their in-run upload figures), counts
-   its stream syncs (the stereo and cross-modal figures beside those from
+   streaming engines end to end, with their in-run upload figures; the
+   mono engines with K1's device time per run), counts its stream syncs (the stereo and cross-modal figures beside those from
    before the port cached its small constants), and times each kernel (K2
    in each mode) against its plain version beside the least time the card
    could take.
@@ -151,6 +172,66 @@ SYNCS_BEFORE = {"stereo": "87-88", "cross_modal": "235"}
 STREAM_GROUPS = 1
 UNIFIED_SHARED_FRAMES = 36
 
+# the monocular engine on benchmarks/extra_configs.py's bench_mono world:
+# 480x752, 13 frames, seed 3, left camera, 256 top-k features, chunk 8
+MONO_FRAMES = 13
+MONO_CHUNK = 8
+MONO_FEATURES = 256
+MONO_SPEED = 0.8  # initial_speed: the first motion's translation norm
+MONO_SOLVERS = ("pencil8", "5point", "hybrid")
+MONO_LEVELS = [(480, 752), (240, 376), (120, 188), (60, 94)]  # its KLT pyramid
+KLT_SHAPES = [(14, 14), (22, 22)]  # the only K1 tiles of the mono path
+# K1's batches there: chunks of 8 and the last of 4 steps; 1 per frame
+MONO_BATCHES = (MONO_CHUNK, (MONO_FRAMES - 1) % MONO_CHUNK, 1)
+# hybrid_ratio that escalates every step: on this world every valid match is
+# an inlier, so 1.0 (n_inliers < ratio * n_valid) would escalate none
+FORCED_RATIO = 1.5
+# JAX reference of each mono run on the same world (tools/jax_mono_reference.py,
+# on the CPU). Staged, RANSAC seeds 0-4 (--seeds 0 1 2 3 4): all 12 steps
+# succeeded for every solver and seed, no step escalated, and every valid
+# match was an inlier, so the ATE did not depend on the seed. The forced
+# escalation (--solvers hybrid --hybrid-ratio 1.5 --seeds 0): all 12 steps
+# escalated, none replaced, the same ATE. The per-frame loop (--per-frame
+# --solvers pencil8 --seeds 0), on the unquantised frames: 12 steps, its own
+# ATE. So each run of the port is held to JAX's figure within MONO_ATE_TOL
+# (the port's staged runs read 1.7e-4 m from it, its per-frame 3.1e-4 m, on
+# the H100). Since every match is an inlier, this world never exercises
+# RANSAC: the 5-point is held on the card by mono_fivepoint.
+JAX_MONO_STEPS = 12
+JAX_MONO_ATE = {"pencil8": 0.16299153638403446, "5point": 0.16299153638403446,
+                "hybrid": 0.16299153638403446, "hybrid_forced": 0.16299153638403446,
+                "per_frame_pencil8": 0.1174152754038824}
+MONO_ATE_TOL = 1e-3  # m
+# the five-point on the card against its CPU run on the same basis. Its
+# float32 roots are noisy where det M(z) is near zero at a grid node (more
+# so on the path's samples than on random scenes: on the CPU, float32
+# against float64 on one chunk's samples finds only ~50 % of the
+# candidates within 1e-3), so each run is held to the float64 solution of
+# the same basis: the card must find it as well as the CPU does, within
+# FIVEPOINT_SLACK, and meet the epipolar contract as often
+FIVEPOINT_SLACK = 0.05
+# JAX reference of staged stereo VO with the top-k detector on the stereo
+# world, RANSAC seeds 0-4 (tools/jax_mono_reference.py --stereo-topk --seeds
+# 0 1 2 3 4, on the CPU): its ATE, 0.108-0.197 m, is far above the grid
+# detector's on the same world (0.0379 m, BENCH_r05.json), so a 0.1 m bound
+# would fail the reference itself. The port's median over the same seeds is held to 1.5 x
+# JAX's.
+TOPK_SEEDS = (0, 1, 2, 3, 4)
+JAX_TOPK = {"ate_m": [0.14897930153217467, 0.19743871820214268, 0.10794871517741095,
+                      0.1599980819142645, 0.1135857873009703]}
+# K1's cases on the paths, each (batches, images, tiles, features) held to
+# its plain version by check_gather: the stereo, cross-modal and integrated
+# paths; the mono engine; the per-frame cross-modal loop (run_cross_modal)
+K1_HELD = [(K1_PATH_BATCHES, LEVELS, list(SHAPES), N_FEATURES),
+           (MONO_BATCHES, MONO_LEVELS, KLT_SHAPES, MONO_FEATURES),
+           ((1,), LEVELS, KLT_SHAPES, N_FEATURES)]
+
+
+def held_cases() -> set:
+    """(batch, tile_h, tile_w, H, W) of every case check_gather holds."""
+    return {(b, *tile, *level) for batches, levels, tiles, _ in K1_HELD for b in batches
+            for tile in tiles for level in levels}
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -204,7 +285,9 @@ def check_gather(dev) -> float:
     """K1 vs its plain version at every main-path tile shape and level, for
     a chunk of 13 steps and a group of 5 windows, and at edge cases: 1x1
     and 2x3 images, 1x1 and 3x5 tiles (odd areas, which reach the scalar
-    head and tail), batch 1 and n 1 and 7."""
+    head and tail), batch 1 and n 1 and 7; then at the mono engine's KLT
+    tiles and 480x752 levels (batches 8, 4 and 1, 256 features) and the
+    per-frame cross-modal loop's (batch 1): every case of ``K1_HELD``."""
     from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
 
     gen = torch.Generator().manual_seed(0)
@@ -212,6 +295,8 @@ def check_gather(dev) -> float:
              for h, w in LEVELS]
     cases += [(batch, n, h, w, [(1, 1), (3, 5), (22, 22)]) for batch in (1, CHUNK)
               for n in (1, 7) for h, w in ((1, 1), (2, 3), LEVELS[-1])]
+    cases += [(batch, n, h, w, tiles) for batches, levels, tiles, n in K1_HELD[1:]
+              for batch in batches for h, w in levels]
     worst = 0.0
     for batch, n, h, w, tiles in cases:
         img = (torch.rand(batch, h, w, generator=gen) * 255).to(dev)
@@ -308,15 +393,17 @@ class GatherShim:
     """Stands in for ``ops/image.py``'s ``gather_tiles`` while entered: it
     calls the real wrapper, keeps the first ``keep`` calls' arguments
     (image, anchors, tile_h, tile_w) and counts the calls by tile shape and
-    image size."""
+    image size; with ``check``, it holds every call's tiles to the plain
+    version's on the same inputs (exactly)."""
 
-    def __init__(self, keep: int = 0):
+    def __init__(self, keep: int = 0, check: bool = False):
         from uasl_motion_estimation_tpu_torch.ops import image as im
 
         self._im, self._real = im, im.gather_tiles
         self.keep, self.calls = keep, []
         self.counts = {}  # (tile_h, tile_w, H, W) -> calls
         self.batches = set()  # (batch, tile_h, tile_w, H, W) of the calls
+        self.check, self.checked = check, 0  # hold each call to the plain version
 
     def __call__(self, img, anchors, tile_h, tile_w):
         if len(self.calls) < self.keep:
@@ -324,7 +411,15 @@ class GatherShim:
         key = (tile_h, tile_w, *img.shape[-2:])
         self.counts[key] = self.counts.get(key, 0) + 1
         self.batches.add((int(np.prod(img.shape[:-2])), *key))
-        return self._real(img, anchors, tile_h, tile_w)
+        out = self._real(img, anchors, tile_h, tile_w)
+        if self.check:
+            from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+
+            if not torch.equal(out, kg.gather_tiles_plain(img, anchors, tile_h, tile_w)):
+                raise AssertionError(f"K1 differs from its plain version on a path call: "
+                                     f"batch {tuple(img.shape[:-2])}, tiles {key}")
+            self.checked += 1
+        return out
 
     def __enter__(self):
         self._im.gather_tiles = self
@@ -879,7 +974,7 @@ def integrated_path(dev, rig, frames, gt, ls, rs, card) -> dict:
                              f"want {K1_PER_GROUP} per group of windows")
     # every (batch, tile, image) the path gave K1 is one that check_gather
     # held against the plain version
-    held = {(b, *tile, *level) for b in K1_PATH_BATCHES for tile in SHAPES for level in LEVELS}
+    held = held_cases()
     if not shim.batches <= held:
         raise AssertionError(f"the integrated path gave K1 cases check_gather never held: "
                              f"{sorted(shim.batches - held)}")
@@ -957,6 +1052,314 @@ def streaming_paths(dev, rig, frames, pipe, staged_traj, unified_res, card) -> d
     return out
 
 
+def device_kernels(fn) -> tuple[int, float]:
+    """CUDA kernels that ``fn`` launches and their summed device time (ms),
+    by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(kernels), sum(1e-3 * e.time_range.elapsed_us() for e in kernels)
+
+
+def event_ms(fn, reps: int = 5) -> list[float]:
+    """Device time of each of ``reps`` calls of ``fn`` between CUDA events
+    (after one call to warm up)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def path_k1(name: str, run, launches: int) -> dict:
+    """K1 on one path run: every call held to the plain version (GatherShim
+    with check) and its (batch, tile, image) among check_gather's cases; the
+    calls equal the launches counted on the path's first run; K1's device
+    time over another run (profiler)."""
+    with GatherShim(check=True) as shim:
+        run()
+    calls = sum(shim.counts.values())
+    if calls != launches or shim.checked != calls:
+        raise AssertionError(f"{name}: the shim saw {calls} K1 calls ({shim.checked} checked), "
+                             f"the launch count says {launches}")
+    if not shim.batches <= held_cases():
+        raise AssertionError(f"{name} gave K1 cases check_gather never held: "
+                             f"{sorted(shim.batches - held_cases())}")
+    k1 = kernel_times_ms(run, K1_KERNEL, calls)
+    return {"k1_calls": calls, "k1_held": shim.checked, "k1_ms_per_run": None if k1 is None
+            else sum(k1), "k1_cases": sorted(shim.batches)}
+
+
+def mono_world():
+    """bench_mono's world: the rig, the 13 left frames and the positions."""
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rig = synthetic.CameraRig(fu=458.65, fv=457.3, cu=367.2, cv=248.4, baseline=0.11,
+                              height=480, width=752)
+    seq = synthetic.SyntheticStereoSequence(n_frames=MONO_FRAMES, rig=rig, seed=3)
+    return rig, [seq.frame(i)[0] for i in range(MONO_FRAMES)], seq.gt_positions()
+
+
+def mono_config(rig, solver: str, **vo):
+    from uasl_motion_estimation_tpu_torch.models.mono_pipeline import MonoPipelineConfig
+    from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+
+    return MonoPipelineConfig(vo=MonoVOParams(intr=Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv),
+                                              inlier_threshold=2.0, solver=solver, **vo),
+                              max_features=MONO_FEATURES)
+
+
+def mono_engine(name: str, run, gt, card) -> dict:
+    """One mono engine's figures: the counted first run (K1 launches from 0,
+    the trajectory's ATE, the steps that succeeded and escalated), frames/s
+    (median of 3 after it), stream syncs per run, and K1 on the path
+    (``path_k1``)."""
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    kg.GATHER.launches = 0
+    stats: dict = {}
+    traj = run(stats)
+    launches = kg.GATHER.launches
+    if launches <= 0:
+        raise AssertionError(f"{name} never launched K1")
+    if traj.shape != (MONO_FRAMES, 4, 4) or not np.isfinite(traj).all():
+        raise AssertionError(f"{name}: bad trajectory, shape {traj.shape}")
+    times = timed_runs(lambda: run({}))
+    out = {"launches": launches, "ate_m": float(metrics.ate_rmse(traj[:, :3, 3], gt)),
+           "n_success": int(sum(stats["success"])), "success": stats["success"],
+           "escalated": stats.get("escalated", []), "replaced": stats.get("replaced", []),
+           "run_s": times, "fps": (MONO_FRAMES - 1) / float(np.median(times)),
+           "syncs": count_syncs(lambda: run({})), **path_k1(name, lambda: run({}), launches)}
+    print(f"mono {name}: frames/s {out['fps']:.2f} (median of {times}); ATE {out['ate_m']:.5f} m; "
+          f"successful steps {out['n_success']}/{MONO_FRAMES - 1}; escalated steps "
+          f"{out['escalated']} (replaced {out['replaced']}); {out['syncs']} stream syncs per "
+          f"run; K1 {launches} launches, every call equal to plain, {out['k1_ms_per_run']} ms of "
+          f"device time per run; card {card}", flush=True)
+    return out
+
+
+def candidate_agreement(Ea, va, Eb, vb, tol=1e-3) -> dict:
+    """How two runs' candidate sets (..., 10, 3, 3) agree, up to sign: the
+    share of samples with equal masks; where both keep a candidate in such
+    samples, the median and largest entry difference and the share within
+    ``tol``; and the share of all kept candidates the other run finds
+    within ``tol``."""
+    same = (va == vb).all(dim=-1)
+    both = va & vb & same[..., None]
+    d = torch.minimum((Ea - Eb).abs().amax((-2, -1)), (Ea + Eb).abs().amax((-2, -1)))[both]
+    A, B = Ea.reshape(-1, 10, 9), Eb.reshape(-1, 10, 9)
+    cross = torch.minimum(torch.cdist(A, B, p=float("inf")), torch.cdist(A, -B, p=float("inf")))
+    ma, mb = va.reshape(-1, 10), vb.reshape(-1, 10)
+    inf = torch.tensor(float("inf"))
+    found = torch.cat([torch.where(mb[:, None, :], cross, inf).amin(-1)[ma] < tol,
+                       torch.where(ma[:, :, None], cross, inf).amin(-2)[mb] < tol])
+    return {"masks_equal": float(same.float().mean()), "median": float(d.median()),
+            "max": float(d.max()), "within": float((d < tol).float().mean()),
+            "found": float(found.float().mean())}
+
+
+def mono_fivepoint(dev, rig, frames, card) -> dict:
+    """The exact 5-point at the mono path's shape: the 8 steps of the first
+    chunk x 200 samples of 5 matches (from the pencil scan's tracks, the
+    5-point's own samples). Its nullspace basis on the card, then its
+    candidates on the card and in the plain CPU run of the same code on
+    that basis, each against the float64 CPU run (``FIVEPOINT_SLACK``);
+    the solve's time per chunk (CUDA events), the time, syncs and kernels
+    of the SVD and of the candidates alone."""
+    from uasl_motion_estimation_tpu_torch.models import mono_pipeline as tmp
+    from uasl_motion_estimation_tpu_torch.models import mono_vo as tmv
+    from uasl_motion_estimation_tpu_torch.ops import fivepoint as tfp
+
+    cfg, cfg8 = mono_config(rig, "5point"), mono_config(rig, "pencil8")
+    sampler, sampler8 = (tmp.make_mono_samplers(0, c.vo)[0] for c in (cfg, cfg8))
+    ls = torch.from_numpy(np.clip(np.stack(frames[:MONO_CHUNK + 1]), 0, 255).astype(np.uint8))
+    _, steps, _ = tmp._mono_scan(ls.to(dev), 0, (sampler8, None), cfg8, MONO_CHUNK)
+    samples = torch.stack([sampler(i, v) for i, v in enumerate(steps.valid)])
+    rows = torch.arange(MONO_CHUNK, device=dev)[:, None, None]
+    s1 = tmv._normalize(steps.matches[..., 0, :], cfg.vo.intr)[rows, samples]
+    s2 = tmv._normalize(steps.matches[..., 1, :], cfg.vo.intr)[rows, samples]
+    basis = tfp.nullspace_basis(s1, s2)
+    Eg, vg = (a.cpu() for a in tfp.candidates_from_basis(basis))
+    Ec, vc = tfp.candidates_from_basis(basis.cpu())
+    E64, v64 = tfp.candidates_from_basis(basis.cpu().double())
+    h1, h2 = (torch.cat([x, torch.ones_like(x[..., :1])], -1).cpu().double() for x in (s1, s2))
+
+    def epipolar_ok(E, v) -> float:
+        epi = torch.einsum("bhni,bhrij,bhnj->bhrn", h2, E.double(), h1).abs().amax(-1)
+        return float((epi[v] < 5e-3).float().mean())
+
+    out = {"samples": list(samples.shape[:2]), "candidates": int(vg.sum()),
+           "card_vs_cpu": candidate_agreement(Eg, vg, Ec, vc),
+           "card_vs_f64": candidate_agreement(Eg, vg, E64.float(), v64),
+           "cpu_vs_f64": candidate_agreement(Ec, vc, E64.float(), v64),
+           "epipolar_ok": {"card": epipolar_ok(Eg, vg), "cpu": epipolar_ok(Ec, vc),
+                           "f64": epipolar_ok(E64, v64)}}
+    out["max_abs_err"] = out["card_vs_cpu"]["max"]
+    if not (out["card_vs_f64"]["found"] >= out["cpu_vs_f64"]["found"] - FIVEPOINT_SLACK
+            and out["epipolar_ok"]["card"] >= out["epipolar_ok"]["cpu"] - FIVEPOINT_SLACK):
+        raise AssertionError(f"the five-point on the card is less accurate than on the CPU: {out}")
+    solve = lambda: tmv.mono_vo_solve(steps.matches, steps.valid, samples, cfg.vo)  # noqa: E731
+    out["solve_ms_per_chunk"] = event_ms(solve)
+    out["svd_ms"] = event_ms(lambda: tfp.nullspace_basis(s1, s2))
+    out["candidates_ms"] = event_ms(lambda: tfp.candidates_from_basis(basis))
+    out["svd_syncs"] = count_syncs(lambda: tfp.nullspace_basis(s1, s2))
+    out["candidates_syncs"] = count_syncs(lambda: tfp.candidates_from_basis(basis))
+    out["solve_syncs"] = count_syncs(solve)
+    out["svd_kernels"], _ = device_kernels(lambda: tfp.nullspace_basis(s1, s2))
+    out["candidates_kernels"], out["candidates_device_ms"] = device_kernels(
+        lambda: tfp.candidates_from_basis(basis))
+    out["solve_kernels"], out["solve_device_ms"] = device_kernels(solve)
+    print(f"five-point at {MONO_CHUNK} steps x {samples.shape[1]} samples, one basis: card vs "
+          f"CPU {out['card_vs_cpu']}; card vs float64 {out['card_vs_f64']}; CPU vs float64 "
+          f"{out['cpu_vs_f64']}; share of candidates with epipolar residual < 5e-3 "
+          f"{out['epipolar_ok']}; 5-point solve per "
+          f"chunk {np.median(out['solve_ms_per_chunk']):.2f} ms ({out['solve_kernels']} kernels, "
+          f"{out['solve_device_ms']:.2f} ms of device time, {out['solve_syncs']} syncs); "
+          f"torch.linalg.svd of the (8, 200, 5, 9) batch {np.median(out['svd_ms']):.3f} ms, "
+          f"{out['svd_kernels']} kernels, {out['svd_syncs']} syncs; candidates "
+          f"{np.median(out['candidates_ms']):.2f} ms, {out['candidates_kernels']} kernels, "
+          f"{out['candidates_syncs']} syncs; card {card}", flush=True)
+    return out
+
+
+def mono_path(dev, card) -> dict:
+    """The monocular engine at full width on bench_mono's world: the staged
+    engine (``run_mono_staged``, chunk 8) for each solver, the per-frame
+    loop (``MonoOdometryPipeline``) for pencil8, and the hybrid with every
+    step escalated (``FORCED_RATIO``); each through ``mono_engine``. All 12
+    steps must succeed (as JAX's do) and each ATE lie within
+    ``MONO_ATE_TOL`` of JAX's (``JAX_MONO_ATE``). Then the five-point
+    (``mono_fivepoint``)."""
+    from uasl_motion_estimation_tpu_torch.models.mono_pipeline import (
+        MonoOdometryPipeline, run_mono_staged)
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    rig, frames, gt = mono_world()
+    print(f"rendered the mono world, {MONO_FRAMES} frames {rig.height}x{rig.width}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def staged(cfg):
+        return lambda stats: run_mono_staged(frames, cfg, seed=0, initial_speed=MONO_SPEED,
+                                             chunk=MONO_CHUNK, device=dev, stats=stats)
+
+    def per_frame(cfg):
+        def run(stats):
+            log = metrics.MetricsLogger()
+            traj = MonoOdometryPipeline(cfg, seed=0, initial_speed=MONO_SPEED, logger=log,
+                                        device=dev).run(frames)
+            stats["success"] = [r["success"] for r in log.records if "success" in r]
+            return traj
+        return run
+
+    runs = {solver: staged(mono_config(rig, solver)) for solver in MONO_SOLVERS}
+    runs["per_frame_pencil8"] = per_frame(mono_config(rig, "pencil8"))
+    runs["hybrid_forced"] = staged(mono_config(rig, "hybrid", hybrid_ratio=FORCED_RATIO))
+    out = {name: mono_engine(name, run, gt, card) for name, run in runs.items()}
+    for name, r in out.items():
+        r["jax_ate_m"] = JAX_MONO_ATE[name]
+        if r["n_success"] < JAX_MONO_STEPS:
+            raise AssertionError(f"mono {name}: {r['n_success']} steps succeeded, JAX "
+                                 f"{JAX_MONO_STEPS}")
+        if not abs(r["ate_m"] - r["jax_ate_m"]) <= MONO_ATE_TOL:
+            raise AssertionError(f"mono {name}: ATE {r['ate_m']} m, JAX's {r['jax_ate_m']} m")
+    if out["hybrid_forced"]["escalated"] != list(range(MONO_FRAMES - 1)):
+        raise AssertionError(f"forced escalation escalated {out['hybrid_forced']['escalated']}")
+    out["fivepoint"] = mono_fivepoint(dev, rig, frames, card)
+    return out
+
+
+def topk_stereo(dev, rig, ls, rs, gt, card) -> dict:
+    """Staged stereo VO with ``detector="topk"`` on the stereo world, for
+    RANSAC seeds 0-4: K1 launched in the first run and every call of
+    another held to plain; all 39 steps succeed for every seed and the
+    median ATE lies within 1.5x the JAX reference's median over the same
+    seeds (``JAX_TOPK``)."""
+    from uasl_motion_estimation_tpu_torch.models.pipeline import OdometryPipeline, default_config
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    cfg = default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), rig.baseline)._replace(
+        detector="topk")
+    out: dict = {"seeds": list(TOPK_SEEDS), "ate_m": [], "n_success": []}
+    for seed in TOPK_SEEDS:
+        log = metrics.MetricsLogger()
+        pipe = OdometryPipeline(cfg, seed=seed, device=dev, logger=log)
+        kg.GATHER.launches = 0
+        traj = pipe.run_staged(ls, rs, chunk=CHUNK)
+        out.setdefault("launches", kg.GATHER.launches)
+        if traj.shape != (N_FRAMES, 4, 4) or not np.isfinite(traj).all():
+            raise AssertionError(f"stereo topk, seed {seed}: bad trajectory {traj.shape}")
+        out["ate_m"].append(float(metrics.ate_rmse(traj[:, :3, 3], gt)))
+        out["n_success"].append(sum(bool(r["success"]) for r in log.records))
+    pipe.logger = None
+
+    def again():
+        pipe.reset()
+        pipe.run_staged(ls, rs, chunk=CHUNK)
+
+    out.update(path_k1("stereo topk", again, out["launches"]))
+    out["median_ate_m"] = float(np.median(out["ate_m"]))
+    out["jax_median_ate_m"] = jax_med = float(np.median(JAX_TOPK["ate_m"]))
+    print(f"stereo, detector=topk, seeds {list(TOPK_SEEDS)}: ATE {np.round(out['ate_m'], 5).tolist()} "
+          f"m, median {out['median_ate_m']:.5f} m (JAX on the CPU {jax_med:.5f} m, gate 1.5x); "
+          f"successful steps {out['n_success']}; K1 {out['launches']} launches, every call "
+          f"equal to plain; card {card}", flush=True)
+    if min(out["n_success"]) < N_FRAMES - 1 or not out["median_ate_m"] <= 1.5 * jax_med:
+        raise AssertionError(f"stereo topk: {out}")
+    return out
+
+
+def cross_modal_per_frame(dev, rig, frames, rights_cm, gt, card) -> dict:
+    """The per-frame cross-modal loop (``run_cross_modal``, warm-started
+    scales) on the full-size cross-modal world, once: K1 and K2 launched,
+    every K1 call held to plain, all steps succeed, median scale error under
+    2 %."""
+    from uasl_motion_estimation_tpu_torch.models.cross_modal import run_cross_modal
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    cfg = cross_modal_config(rig)
+    pairs = [(f[0], r) for f, r in zip(frames, rights_cm)]
+    kg.GATHER.launches = kmi.MI.launches = kmi.MI.strip_launches = 0
+    t0 = time.perf_counter()
+    res = run_cross_modal(pairs, cfg, seed=0, device=dev)
+    run_s = time.perf_counter() - t0
+    gt_speed = np.linalg.norm(np.diff(gt, axis=0), axis=1)
+    err = np.abs(res.scales - gt_speed) / gt_speed
+    out = {"run_s": run_s, "fps": (N_FRAMES - 1) / run_s,
+           "launches": {"gather_tiles": kg.GATHER.launches, "mi_hist": kmi.MI.launches,
+                        "mi_strip": kmi.MI.strip_launches},
+           "n_success": sum(bool(r["success"]) for r in res.records),
+           "scale_err_median": float(np.median(err)), "scale_err_max": float(err.max()),
+           "ate_m": float(metrics.ate_rmse(res.trajectory[:, :3, 3], gt))}
+    out.update(path_k1("run_cross_modal", lambda: run_cross_modal(pairs, cfg, seed=0, device=dev),
+                       out["launches"]["gather_tiles"]))
+    print(f"run_cross_modal (per frame): {out['n_success']}/{N_FRAMES - 1} steps, scale error "
+          f"median {out['scale_err_median']:.5f} max {out['scale_err_max']:.5f}, ATE "
+          f"{out['ate_m']:.5f} m, {out['fps']:.2f} frames/s (one run); launches "
+          f"{out['launches']}, every K1 call equal to plain; card {card}", flush=True)
+    if min(out["launches"].values()) <= 0 or out["n_success"] != N_FRAMES - 1 \
+            or not out["scale_err_median"] < 0.02:
+        raise AssertionError(f"run_cross_modal on the card: {out}")
+    return out
+
+
 def timed_runs(run, n=3) -> list[float]:
     times = []
     for _ in range(n):
@@ -988,7 +1391,9 @@ def main() -> int:
 
     k1_err = check_gather(dev)
     print(f"K1 == plain at {len(SHAPES)} tile shapes x {len(LEVELS)} levels (batches {CHUNK} "
-          f"and {UNIFIED_WCHUNK}) and at the edge cases, max abs err {k1_err}")
+          f"and {UNIFIED_WCHUNK}), at the edge cases, at the mono engine's {len(KLT_SHAPES)} KLT "
+          f"tiles x {len(MONO_LEVELS)} levels (batches {MONO_BATCHES}) and the per-frame loops' "
+          f"batch 1, max abs err {k1_err}")
     k2_err, ent_err = check_mi(dev)
     print(f"K2 vs plain at the matcher and scale shapes, sentinels 20/25/31/400, P 81/121, "
           f"bins 20/32: max abs err {k2_err:.3g} (tolerance {K2_TOL}); identical patches "
@@ -1131,10 +1536,18 @@ def main() -> int:
     # --- integrated VO+BA engine, then the streaming engines ---
     integ = integrated_path(dev, rig, frames, gt, ls, rs, card)
     streams = streaming_paths(dev, rig, frames, pipe, traj, integ.pop("result"), card)
+
+    # --- stereo with the top-k detector, the per-frame cross-modal loop, and
+    # the monocular engine ---
+    topk = topk_stereo(dev, rig, ls, rs, gt, card)
+    rights_u8 = list(np.clip(rs_cm, 0, 255).astype(np.uint8))
+    cm_frame = cross_modal_per_frame(dev, rig, frames, rights_u8, gt, card)
+    mono = mono_path(dev, card)
     print(json.dumps({"paths": {
         "stereo": {"syncs": stereo_syncs, "syncs_before": SYNCS_BEFORE["stereo"]},
         "cross_modal": {"syncs": cm_syncs, "syncs_before": SYNCS_BEFORE["cross_modal"]},
-        "integrated": integ, **streams}, "card": card}))
+        "integrated": integ, **streams, "stereo_topk": topk, "cross_modal_per_frame": cm_frame,
+        "mono": mono}, "card": card}))
 
     # --- kernel timings ---
     tg, event_floor = time_gather(dev, shim.calls)
@@ -1172,7 +1585,11 @@ def main() -> int:
                              "integrated": integ["launches"]["gather_tiles"],
                              "integrated_corrupted": integ["launches_corrupted"],
                              "streaming": streams["streaming"]["launches"],
-                             "unified_streaming": streams["unified_streaming"]["launches"]},
+                             "unified_streaming": streams["unified_streaming"]["launches"],
+                             "stereo_topk": topk["launches"],
+                             "cross_modal_per_frame": cm_frame["launches"]["gather_tiles"],
+                             **{f"mono_{name}": mono[name]["launches"] for name in mono
+                                if name != "fivepoint"}},
         "max_abs_err": k1_err,
         "ms": strip["ms"],
         "warm_ms": strip["warm_ms"],
@@ -1186,6 +1603,8 @@ def main() -> int:
         "per_run_launches": n_calls,
         "per_run_ms_integrated": integ["k1_ms_per_run"],
         "per_run_launches_integrated": integ["k1_calls"],
+        "per_run_ms_mono": {name: mono[name]["k1_ms_per_run"] for name in mono
+                            if name != "fivepoint"},
         "kernel_ms": strip["kernel_ms"],
         "event_floor_ms": event_floor,
         "timings": {name: {key: r[key] for key in (

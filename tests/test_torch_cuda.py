@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card (marker ``cuda``); they skip
 where there is none, since a CUDA kernel has no CPU mode: the tile gather
-K1, the MI joint histogram K2, and both ported paths against the port's CPU
-run. This file imports
-no jax, so it also runs where jax is absent:
+K1, the MI joint histogram K2, and the ported paths against the port's CPU
+run (stereo VO, the cross-modal session, and the mono engine with its exact
+5-point and top-k detector). This file imports no jax, so it also runs
+where jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 """
@@ -235,3 +236,124 @@ def test_cross_modal_session_on_card_matches_cpu():
     assert [r["success"] for r in card.records] == [r["success"] for r in cpu.records]
     np.testing.assert_allclose(card.scales, cpu.scales, rtol=1e-2)
     np.testing.assert_allclose(card.trajectory[:, :3, :3], cpu.trajectory[:, :3, :3], atol=1e-3)
+
+
+def two_view_scenes(n: int, seed: int = 0):
+    """n random 5-point two-view scenes (normalized coordinates), as in
+    tests/test_fivepoint.py: a 0.2 rad rotation, a unit translation, depths
+    4-10."""
+    rng = np.random.default_rng(seed)
+    x1s, x2s = [], []
+    for _ in range(n):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+        R = np.eye(3) + np.sin(0.2) * K + (1 - np.cos(0.2)) * K @ K
+        t = rng.normal(size=3)
+        t /= np.linalg.norm(t)
+        X = rng.uniform(-2, 2, size=(5, 3))
+        X[:, 2] = rng.uniform(4, 10, size=5)
+        X2 = X @ R.T + t
+        x1s.append(X[:, :2] / X[:, 2:3])
+        x2s.append(X2[:, :2] / X2[:, 2:3])
+    return (torch.from_numpy(np.stack(x1s).astype(np.float32)),
+            torch.from_numpy(np.stack(x2s).astype(np.float32)))
+
+
+@pytest.mark.cuda
+def test_fivepoint_on_card_matches_cpu():
+    """The exact 5-point on the card against its CPU run, given the same
+    (CPU) nullspace basis of 200 scenes. det M(z) is a float32 10x10
+    determinant whose sign near a grid node's zero can differ between two
+    evaluation orders, which adds or drops a bracket
+    (tests/test_torch_fivepoint.py measures the same against JAX). Held:
+    a median difference below 1e-4 per entry of a unit-norm E where both
+    keep a candidate, at least 75 % of those within 1e-3, and at least 80 %
+    of all candidates of either run found by the other within 1e-3
+    (``chip_smoke.candidate_agreement``; measured on the H100: 1.3e-5, 90 %
+    and 86.5 %). The card's own basis (its SVD) meets the solver's
+    contract: epipolar residual below 5e-3 for 90 % of its candidates
+    (measured 97 %)."""
+    needs_card()
+    from uasl_motion_estimation_tpu_torch.ops import fivepoint as tfp
+
+    x1, x2 = two_view_scenes(200)
+    basis = tfp.nullspace_basis(x1, x2)
+    Ec, vc = tfp.candidates_from_basis(basis)
+    Eg, vg = (a.cpu() for a in tfp.candidates_from_basis(basis.cuda()))
+    agree = load_chip_smoke().candidate_agreement(Eg, vg, Ec, vc)
+    print("five-point, card vs CPU on one basis:", agree)
+    assert agree["median"] < 1e-4 and agree["within"] >= 0.75 and agree["found"] >= 0.8
+    E, v = (a.cpu() for a in tfp.fivepoint_candidates(x1.cuda(), x2.cuda()))
+    h1 = torch.cat([x1, torch.ones(200, 5, 1)], -1).double()
+    h2 = torch.cat([x2, torch.ones(200, 5, 1)], -1).double()
+    epi = torch.einsum("sni,srij,snj->srn", h2, E.double(), h1).abs().amax(-1)
+    print("five-point on the card, own basis: share of candidates with epipolar residual "
+          "< 5e-3:", float((epi[v] < 5e-3).float().mean()))
+    assert (epi[v] < 5e-3).float().mean() >= 0.9
+
+
+@pytest.mark.cuda
+def test_detect_features_on_card_matches_cpu(monkeypatch):
+    """The top-k detector on the card against the CPU on a rendered frame
+    pair (batch 2): equal masks, the same features in the same order
+    (sub-pixel xy within 1e-4 px); and on a response map built with ties,
+    exactly equal (ties go to the lower linear index)."""
+    needs_card()
+    from uasl_motion_estimation_tpu_torch.ops import image as tim
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rig = synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
+                              height=192, width=320)
+    seq = synthetic.SyntheticStereoSequence(n_frames=2, rig=rig, seed=3)
+    imgs = torch.from_numpy(np.stack([seq.frame(i)[0] for i in range(2)]).astype(np.float32))
+    c = tim.detect_features(imgs, 256, 0.01, 5)
+    g = [a.cpu() for a in tim.detect_features(imgs.cuda(), 256, 0.01, 5)]
+    assert torch.equal(c[2], g[2]) and c[2].sum() > 200
+    torch.testing.assert_close(g[0], c[0], atol=1e-4, rtol=0)
+    resp = torch.zeros(48, 80)
+    resp[12, 60] = resp[12, 20] = resp[30, 40] = 1.0
+    monkeypatch.setattr(tim, "shi_tomasi_response", lambda img, window_radius=2: img)
+    c = tim.detect_features(resp, 40, 0.01, 5)
+    g = [a.cpu() for a in tim.detect_features(resp.cuda(), 40, 0.01, 5)]
+    for a, b in zip(c, g):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mono_staged_on_card_matches_cpu():
+    """run_mono_staged on the card against the CPU (192x320, 6 frames,
+    seed 3, 64 hypotheses) with the same CPU-drawn samples, the hybrid
+    escalating every step (hybrid_ratio 2), so K1 (KLT) and the exact
+    5-point both run on the card: equal success flags and escalations,
+    positions within 5e-3 m, rotations within 1e-3."""
+    needs_card()
+    from uasl_motion_estimation_tpu_torch.models import mono_pipeline as tmp
+    from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rig = synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
+                              height=192, width=320)
+    seq = synthetic.SyntheticStereoSequence(n_frames=6, rig=rig, seed=3)
+    frames = [seq.frame(i)[0] for i in range(6)]
+    vo = MonoVOParams(intr=Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), inlier_threshold=2.0,
+                      solver="hybrid", hybrid_ratio=2.0, n_ransac=64)
+    cfg = tmp.MonoPipelineConfig(vo=vo, max_features=256)
+    cpu = tmp.make_mono_samplers(0, vo)
+
+    def on(sampler):
+        return lambda step, valid: sampler(step, valid.cpu()).to(valid.device)
+
+    out = []
+    for dev in ("cpu", "cuda"):
+        stats = {}
+        before = kg.GATHER.launches
+        traj = tmp.run_mono_staged(frames, cfg, initial_speed=0.8, chunk=3, device=dev,
+                                   sampler=on(cpu[0]), sampler5=on(cpu[1]), stats=stats)
+        out.append((traj, stats, kg.GATHER.launches - before))
+    (tc, sc, _), (tg, sg, launches) = out
+    assert launches > 0
+    assert sc["success"] == sg["success"] and sc["escalated"] == sg["escalated"] == list(range(5))
+    np.testing.assert_allclose(tg[:, :3, 3], tc[:, :3, 3], atol=5e-3)
+    np.testing.assert_allclose(tg[:, :3, :3], tc[:, :3, :3], atol=1e-3)

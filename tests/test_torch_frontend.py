@@ -20,9 +20,7 @@ import torch
 from uasl_motion_estimation_tpu.models import frontend as jfe
 from uasl_motion_estimation_tpu.ops import image as jim
 from uasl_motion_estimation_tpu_torch.models import frontend as tfe
-from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams, mono_vo_solve
 from uasl_motion_estimation_tpu_torch.ops import image as tim
-from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
 from uasl_motion_estimation_tpu_torch.utils import synthetic
 
 torch.set_num_threads(1)
@@ -133,14 +131,11 @@ def test_quad_match_frames_batched_with_shared_pyramids(frames):
         np.testing.assert_allclose(b.uv[i].numpy(), one.uv.numpy(), atol=1e-4)
 
 
-def test_unported_options_raise(frames):
+@pytest.mark.parametrize("detector", ["fast", "harris"])
+def test_unknown_detector_raises(frames, detector):
     x = torch.from_numpy(frames[0][0])
-    with pytest.raises(NotImplementedError):  # needs ops/fivepoint.py
-        mono_vo_solve(torch.zeros(12, 2, 2), torch.ones(12, dtype=torch.bool),
-                      torch.zeros(4, 8, dtype=torch.int64),
-                      MonoVOParams(intr=Intrinsics(320.0, 320.0, 160.0, 96.0), solver="5point"))
-    with pytest.raises(NotImplementedError):
-        tfe.quad_match_frames(x, x, x, x, max_features=16, detector="topk")
+    with pytest.raises(ValueError):
+        tfe.quad_match_frames(x, x, x, x, max_features=16, detector=detector)
 
 
 def test_configs_mirror_jax_defaults():

@@ -1,9 +1,10 @@
 """The port never imports jax and never loads a file of the JAX package,
 under any module name. Checked in a fresh interpreter that imports the port
 and runs ``OdometryPipeline.run_staged`` and ``run_streaming``,
-``run_cross_modal_staged`` and the unified VO+BA engine
-(``run_unified_system``) on the CPU, then looks at every loaded module's
-name and ``__file__``."""
+``run_cross_modal_staged``, the unified VO+BA engine (``run_unified_system``)
+and the mono engines (``run_mono_staged`` with the hybrid escalating every
+step, so the exact 5-point runs, and ``MonoOdometryPipeline``) on the CPU,
+then looks at every loaded module's name and ``__file__``."""
 
 import subprocess
 import sys
@@ -23,7 +24,10 @@ from uasl_motion_estimation_tpu_torch.models.pipeline import OdometryPipeline, d
 from uasl_motion_estimation_tpu_torch.models.cross_modal import (
     CrossModalConfig, run_cross_modal_staged)
 from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
+from uasl_motion_estimation_tpu_torch.models.mono_pipeline import (
+    MonoOdometryPipeline, MonoPipelineConfig, run_mono_staged)
 from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
+from uasl_motion_estimation_tpu_torch.ops import fivepoint
 from uasl_motion_estimation_tpu_torch.models.scale import ScaleConfig
 from uasl_motion_estimation_tpu_torch.models.smoother import SmootherConfig, run_unified_system
 from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
@@ -51,6 +55,16 @@ ccfg = CrossModalConfig(vo=MonoVOParams(intr=intr, n_ransac=32),
                         matcher=MatcherConfig(max_disparity=32), max_features=64)
 res = run_cross_modal_staged([cross.frame(i) for i in range(3)], ccfg, chunk=2, device="cpu")
 assert res.trajectory.shape == (3, 4, 4) and np.isfinite(res.scales).all()
+mcfg = MonoPipelineConfig(vo=MonoVOParams(intr=intr, n_ransac=16, solver="hybrid",
+                                          hybrid_ratio=2.0), max_features=64)
+mframes = [f[0] for f in uframes]
+stats = {}
+mtraj = run_mono_staged(mframes, mcfg, chunk=2, device="cpu", stats=stats)
+assert mtraj.shape == (5, 4, 4) and np.isfinite(mtraj).all() and stats["escalated"] == [0, 1, 2, 3]
+ptraj = MonoOdometryPipeline(mcfg._replace(vo=mcfg.vo._replace(solver="pencil8")),
+                             device="cpu").run(mframes)
+assert ptraj.shape == (5, 4, 4) and np.isfinite(ptraj).all()
+assert fivepoint.fivepoint_candidates(torch.rand(5, 2), torch.rand(5, 2))[0].shape == (10, 3, 3)
 jax_pkg = (Path(uasl_motion_estimation_tpu_torch.__file__).resolve().parent.parent
            / "uasl_motion_estimation_tpu")
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -32,13 +32,18 @@ torch.set_num_threads(1)
 RNG = np.random.default_rng(3)
 
 
-def jax_mono_samples(key, n_ransac: int, valid: np.ndarray) -> np.ndarray:
-    """The (n_ransac, 8) Gumbel-top-8 draw of the JAX ``_mono_vo_impl``."""
+def jax_mono_samples(key, n_ransac: int, valid: np.ndarray, k: int = 8,
+                     escalation: bool = False) -> np.ndarray:
+    """The (n_ransac, k) Gumbel-top-k draw of the JAX ``_mono_vo_impl``:
+    k = 8 for the pencil, 5 for the 5-point. ``escalation``: the hybrid's
+    5-point draw, from ``fold_in(key, 5)`` with k = 5."""
+    if escalation:
+        key, k = jax.random.fold_in(key, 5), 5
     v = jnp.asarray(valid)
 
-    def one(k):
-        g = jnp.where(v, jax.random.gumbel(k, v.shape), -jnp.inf)
-        return jax.lax.top_k(g, 8)[1]
+    def one(kk):
+        g = jnp.where(v, jax.random.gumbel(kk, v.shape), -jnp.inf)
+        return jax.lax.top_k(g, k)[1]
 
     return np.array(jax.vmap(one)(jax.random.split(key, n_ransac)))  # a writable copy
 
@@ -198,13 +203,20 @@ def test_too_few_matches_fails_like_jax():
     assert not bool(want.success) and not bool(got.success)
 
 
-@pytest.mark.parametrize("solver", ["5point", "hybrid"])
-def test_unported_solvers_raise(solver):
+@pytest.mark.parametrize("overrides,k,with5", [
+    ({"solver": "7point"}, 8, False),  # unknown solver
+    ({"robust": "huber"}, 8, False),  # unknown robust scoring
+    ({"solver": "5point"}, 8, False),  # 8-point samples given to the 5-point
+    ({"solver": "hybrid"}, 8, False),  # the hybrid without its 5-point samples
+])
+def test_unknown_options_raise(overrides, k, with5):
     matches, *_ = make_two_view(n=20)
-    with pytest.raises(NotImplementedError):
+    samples5 = torch.zeros((4, 5), dtype=torch.int64) if with5 else None
+    with pytest.raises(ValueError):
         tmv.mono_vo_solve(torch.from_numpy(matches), torch.ones(20, dtype=torch.bool),
-                          torch.zeros((4, 8), dtype=torch.int64),
-                          tmv.MonoVOParams(intr=from_reference_config(INTR), solver=solver))
+                          torch.zeros((4, k), dtype=torch.int64),
+                          tmv.MonoVOParams(intr=from_reference_config(INTR), **overrides),
+                          samples5)
 
 
 def test_mono_params_mirror_jax_defaults():

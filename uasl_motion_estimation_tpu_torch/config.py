@@ -2,16 +2,17 @@
 
 The system has no weights; its state is the configuration NamedTuples.
 ``from_reference_config`` walks a JAX ``PipelineConfig``,
-``CrossModalConfig``, ``SmootherConfig`` or ``BAConfig`` (or any of their
-parts) through ``_asdict()`` and rebuilds it from the port's NamedTuples of
-the same names, so both sides run the identical configuration. It reads the
-tuples only and never imports jax.
+``MonoPipelineConfig``, ``CrossModalConfig``, ``SmootherConfig`` or
+``BAConfig`` (or any of their parts) through ``_asdict()`` and rebuilds it
+from the port's NamedTuples of the same names, so both sides run the
+identical configuration. It reads the tuples only and never imports jax.
 """
 
 from __future__ import annotations
 
 from .models.cross_modal import CrossModalConfig
 from .models.frontend import KLTConfig, MatcherConfig
+from .models.mono_pipeline import MonoPipelineConfig
 from .models.mono_vo import MonoVOParams
 from .models.pipeline import PipelineConfig
 from .models.scale import ScaleConfig
@@ -23,7 +24,8 @@ from .solvers.lm import LMConfig
 
 _PORT_TYPES = {t.__name__: t for t in (
     PipelineConfig, StereoVOParams, Intrinsics, MatcherConfig, KLTConfig, LMConfig,
-    CrossModalConfig, MonoVOParams, ScaleConfig, SmootherConfig, BAConfig)}
+    CrossModalConfig, MonoVOParams, MonoPipelineConfig, ScaleConfig, SmootherConfig,
+    BAConfig)}
 
 
 def from_reference_config(cfg):

@@ -357,12 +357,17 @@ def quad_match_frames(
 ) -> QuadMatches:
     """Detect in prev-left, ZNCC-match the previous pair, KLT-track forward,
     and match the current pair with each feature's previous disparity as a
-    search prior. ``pyr_*_left``: optional prebuilt left KLT pyramids."""
-    if detector != "grid":
-        raise NotImplementedError(f"detector={detector!r} is not ported yet")
+    search prior. ``detector``: ``"grid"`` (bucketed best-per-cell GFTT) or
+    ``"topk"`` (global top-k GFTT with NMS, ``detect_features``).
+    ``pyr_*_left``: optional prebuilt left KLT pyramids."""
     kw = dict(detect_kwargs)
-    kw.pop("nms_radius", None)  # cell bucketing subsumes wide NMS
-    feats_l, _, v0 = im.detect_features_grid(prev_left, max_features=max_features, **kw)
+    if detector == "grid":
+        kw.pop("nms_radius", None)  # cell bucketing subsumes wide NMS
+        feats_l, _, v0 = im.detect_features_grid(prev_left, max_features=max_features, **kw)
+    elif detector == "topk":
+        feats_l, _, v0 = im.detect_features(prev_left, max_features=max_features, **kw)
+    else:
+        raise ValueError(f"unknown detector {detector!r} (\"grid\" or \"topk\")")
     f2, _, v1 = match_stereo(prev_left, prev_right, feats_l, v0, matcher)
     tracked = klt_track(prev_left, cur_left, feats_l, v1, klt,
                         pyr_prev=pyr_prev_left, pyr_next=pyr_cur_left)

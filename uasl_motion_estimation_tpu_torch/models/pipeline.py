@@ -35,13 +35,16 @@ from .stereo_vo import StereoVOParams, _sample_hypotheses, sample_generator, ste
 Sampler = Callable[[int, torch.Tensor], torch.Tensor]
 
 
-def make_sampler(seed: int, n_ransac: int, k: int = 3) -> Sampler:
-    """Gumbel-top-k samples from a generator keyed on (seed, global step):
-    every engine solves step i with the same samples."""
+def make_sampler(seed: int, n_ransac: int, k: int = 3, stream: int = 0) -> Sampler:
+    """Gumbel-top-k samples from a generator keyed on (seed, global step,
+    ``stream``): every engine solves step i with the same samples; a
+    non-zero ``stream`` draws another set for the same step (the mono
+    hybrid's 5-point escalation takes stream 5, where JAX folds 5 into the
+    step's key)."""
 
     def sample(step: int, valid: torch.Tensor) -> torch.Tensor:
-        return _sample_hypotheses(sample_generator(seed, step, valid.device), n_ransac, valid,
-                                  k=k)
+        return _sample_hypotheses(sample_generator(seed, step, valid.device, stream), n_ransac,
+                                  valid, k=k)
 
     return sample
 
@@ -142,7 +145,7 @@ class PipelineConfig(NamedTuple):
     klt: fe.KLTConfig = fe.KLTConfig()
     detect_nms_radius: int = 5
     detect_quality: float = 1e-4
-    detector: str = "grid"  # "grid" bucketed GFTT ("topk" is not ported yet)
+    detector: str = "grid"  # "grid" bucketed GFTT or "topk" global top-k with NMS
 
 
 class FrameOutput(NamedTuple):

@@ -142,16 +142,23 @@ def _sq_reproj_error(state, pts3, obs, p: StereoVOParams) -> torch.Tensor:
     return torch.sum(res * res, dim=-1)
 
 
-def sample_generator(seed: int, step: int, device: torch.device | str) -> torch.Generator:
+def sample_generator(seed: int, step: int, device: torch.device | str,
+                     stream: int = 0) -> torch.Generator:
     """A generator keyed on (seed, global step) for the RANSAC samples of
     that step. The card's Philox takes the whole 64-bit key (seed << 32) +
     step; the CPU's Mersenne Twister keeps only a seed's low 32 bits, so
-    there the seed is mixed into them (seed 0 keys alike either way)."""
+    there the seed is mixed into them (seed 0 keys alike either way). A
+    non-zero ``stream`` keys a second, independent set of samples for the
+    same step: the key is multiplied by a 64-bit odd constant and the
+    stream added, within the generator's key width."""
     gen = torch.Generator(device=device)
     if gen.device.type == "cpu":
-        gen.manual_seed((seed * 0x9E3779B1 + step) & 0xFFFFFFFF)
+        key, width = (seed * 0x9E3779B1 + step) & 0xFFFFFFFF, 0xFFFFFFFF
     else:
-        gen.manual_seed((seed << 32) + step)
+        key, width = (seed << 32) + step, 0xFFFFFFFFFFFFFFFF
+    if stream:
+        key = (key * 0x9E3779B97F4A7C15 + stream) & width
+    gen.manual_seed(key)
     return gen
 
 

@@ -1,7 +1,7 @@
 """Projective geometry: the subset of ``uasl_motion_estimation_tpu/ops/geometry.py``
 the ported paths need (homogeneous coordinates, pinhole intrinsics,
-projection, rectified-stereo triangulation) and its float64 numpy
-covariance transport. Points are ``(..., 2|3)`` tensors."""
+projection, rectified-stereo triangulation, relative scale) and its float64
+numpy covariance transport. Points are ``(..., 2|3)`` tensors."""
 
 from __future__ import annotations
 
@@ -63,6 +63,25 @@ def triangulate_disparity(
     y = (left_uv[..., 1] - intr_left.cv) * baseline / d
     z = intr_left.fu * baseline / d
     return torch.stack([x, y, z], dim=-1)
+
+
+def relative_scale(pts_a: torch.Tensor, pts_b: torch.Tensor,
+                   mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Median ratio of the distances between consecutive points of two
+    (..., N, 3) point sets (pair i is points i and i-1, cyclically): the
+    robust form of ``MonoVisualOdometry::findRelativeScale``
+    (MonoVisualOdometry.cpp:76-87). With ``mask`` (..., N), a pair counts
+    only where both its points are masked in, and no pair gives NaN. The
+    median of an even count averages the two middle values, as
+    ``jnp.(nan)median`` does (``torch.(nan)median`` would take the lower):
+    a quantile at 0.5. Returns (...)."""
+    da = torch.linalg.norm(pts_a - torch.roll(pts_a, 1, dims=-2), dim=-1)
+    db = torch.linalg.norm(pts_b - torch.roll(pts_b, 1, dims=-2), dim=-1)
+    ratio = da / torch.where(db < 1e-12, 1e-12, db)
+    if mask is None:
+        return torch.quantile(ratio, 0.5, dim=-1)
+    pair = mask & torch.roll(mask, 1, dims=-1)
+    return torch.nanquantile(torch.where(pair, ratio, torch.nan), 0.5, dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
-"""Image operations: pyramids, gradients, corner response, grid detection,
-sampling. Port of ``uasl_motion_estimation_tpu/ops/image.py`` (the subset on
-the staged stereo-VO path).
+"""Image operations: pyramids, gradients, corner responses, NMS, grid and
+top-k detection, sampling. Port of ``uasl_motion_estimation_tpu/ops/image.py``.
 
 Every function takes images ``(..., H, W)`` float32 with any leading batch
 dims (the sequence scan's chunk steps) and points ``(..., N, 2)`` as
@@ -42,6 +41,18 @@ def _filter1d(img: torch.Tensor, taps, dim: int) -> torch.Tensor:
     return out
 
 
+def _conv2d_same(img: torch.Tensor, kernel) -> torch.Tensor:
+    """Single-channel 2-D correlation (``lax.conv_general_dilated``) of
+    (..., H, W) images with a (kh, kw) kernel, SAME size for odd kernels,
+    edge values replicated."""
+    kernel = torch.as_tensor(kernel, dtype=img.dtype, device=img.device)
+    kh, kw = kernel.shape
+    h, w = img.shape[-2:]
+    p = F.pad(img.reshape(-1, 1, h, w), (kw // 2, kw // 2, kh // 2, kh // 2), mode="replicate")
+    out = F.conv2d(p, kernel[None, None])
+    return out.reshape(*img.shape[:-2], *out.shape[-2:])
+
+
 def _sep_filter(img: torch.Tensor, k_row, k_col) -> torch.Tensor:
     """Separable filter: k_col applied along rows, k_row along columns."""
     return _filter1d(_filter1d(img, k_col, -2), k_row, -1)
@@ -76,6 +87,14 @@ def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _sep_filter(img, diff, smooth), _sep_filter(img, smooth, diff)
 
 
+def scharr(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scharr gradients (gx, gy) with 1/32 normalization: intensity
+    derivatives with better rotational symmetry than Sobel."""
+    smooth = np.array([3.0, 10.0, 3.0]) / 16.0
+    diff = np.array([-1.0, 0.0, 1.0]) / 2.0
+    return _sep_filter(img, diff, smooth), _sep_filter(img, smooth, diff)
+
+
 def _box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
     k = np.ones(2 * radius + 1) / (2 * radius + 1)
     return _sep_filter(img, k, k)
@@ -93,6 +112,36 @@ def shi_tomasi_response(img: torch.Tensor, window_radius: int = 2) -> torch.Tens
     return half_tr - disc
 
 
+def harris_response(img: torch.Tensor, window_radius: int = 2, k: float = 0.04
+                    ) -> torch.Tensor:
+    """Harris corner response det(M) - k trace(M)^2 of the box-filtered
+    structure tensor."""
+    gx, gy = sobel(img)
+    a = _box_filter(gx * gx, window_radius)
+    b = _box_filter(gx * gy, window_radius)
+    c = _box_filter(gy * gy, window_radius)
+    return a * c - b * b - k * (a + c) ** 2
+
+
+def nms(response: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """Non-maximum suppression of (..., H, W) responses: a pixel survives
+    iff it equals the max of its (2r+1)^2 neighbourhood, else -inf. The
+    max is a ``max_pool2d`` whose padding acts as -inf (``reduce_window``
+    with SAME padding), the block-parallel form of the scanline 3x3 NMS
+    (feature_types.cpp:253-351)."""
+    h, w = response.shape[-2:]
+    pooled = F.max_pool2d(response.reshape(-1, 1, h, w), 2 * radius + 1, stride=1,
+                          padding=radius).reshape(response.shape)
+    return torch.where(response >= pooled, response,
+                       const(-torch.inf, response.dtype, response.device))
+
+
+def _border_mask(h: int, w: int, border: int, device) -> torch.Tensor:
+    ys = torch.arange(h, device=device)[:, None]
+    xs = torch.arange(w, device=device)[None, :]
+    return (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
+
+
 def subpixel_peak_2d(patch3: torch.Tensor) -> torch.Tensor:
     """Quadratic sub-pixel offset (dx, dy) from (..., 3, 3) score patches
     (nonMaxSupScanline3x3's parabola fit, feature_types.cpp:330-349)."""
@@ -104,6 +153,37 @@ def subpixel_peak_2d(patch3: torch.Tensor) -> torch.Tensor:
     off_y = torch.where(torch.abs(dyy) > 1e-9, -dy / dyy, torch.zeros_like(dy))
     return torch.stack([torch.clamp(off_x, -0.5, 0.5),
                         torch.clamp(off_y, -0.5, 0.5)], dim=-1)
+
+
+def detect_features(
+    img: torch.Tensor,
+    max_features: int = 500,
+    quality_level: float = 0.01,
+    nms_radius: int = 5,
+    border: int = 8,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GFTT detection: response -> NMS -> global top-k, fixed output shape.
+
+    The top k of the flat masked response come in descending order, ties
+    broken by the lower linear index, as JAX's ``top_k`` (and its
+    ``approx_max_k`` on the CPU) breaks them: a stable descending sort.
+    Feature order matters downstream (RANSAC sample indices, the
+    consecutive pairs of ``relative_scale``). Valid: finite and above
+    ``quality_level`` times the best score; sub-pixel peak on the raw
+    response. Returns (xy (..., K, 2) float32, scores (..., K), valid)."""
+    lead = img.shape[:-2]
+    h, w = img.shape[-2:]
+    raw = shi_tomasi_response(img)
+    resp = nms(raw, nms_radius)
+    resp = torch.where(_border_mask(h, w, border, img.device), resp,
+                       const(-torch.inf, resp.dtype, resp.device))
+    scores, idx = torch.sort(resp.reshape(*lead, h * w), dim=-1, descending=True, stable=True)
+    scores, idx = scores[..., :max_features], idx[..., :max_features]
+    xy_i = torch.stack([idx % w, idx // w], dim=-1).to(torch.float32)
+    valid = torch.isfinite(scores) & (
+        scores > quality_level * torch.amax(scores, dim=-1, keepdim=True))
+    xy = xy_i + subpixel_peak_2d(extract_patches(raw, xy_i, 1))
+    return xy, scores, valid
 
 
 def _grid_shape(h: int, w: int, max_features: int) -> tuple[int, int]:
@@ -132,11 +212,8 @@ def detect_features_grid(
     # reduce_window max with SAME padding == max_pool2d padded with -inf
     pooled = F.max_pool2d(raw.reshape(-1, 1, h, w), 3, stride=1, padding=1)
     pooled = pooled.reshape(raw.shape)
-    ys = torch.arange(h, device=img.device)[:, None]
-    xs = torch.arange(w, device=img.device)[None, :]
-    in_border = (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
     neg_inf = const(-torch.inf, raw.dtype, raw.device)
-    resp = torch.where((raw >= pooled) & in_border, raw, neg_inf)
+    resp = torch.where((raw >= pooled) & _border_mask(h, w, border, img.device), raw, neg_inf)
 
     gh, gw = _grid_shape(h, w, max_features)
     ch = -(-h // gh)

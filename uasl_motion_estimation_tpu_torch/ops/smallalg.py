@@ -45,6 +45,14 @@ def _round_index(n: int, device: torch.device) -> tuple[tuple[torch.Tensor, torc
                  for pairs in _round_robin_rounds(n))
 
 
+def det3(M: torch.Tensor) -> torch.Tensor:
+    """Determinant of (..., 3, 3) by cofactors (no LU library call)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
 def eigh_jacobi(M: torch.Tensor, sweeps: int = 6) -> tuple[torch.Tensor, torch.Tensor]:
     """Eigendecomposition of symmetric (..., n, n), ascending eigenvalues.
 
