@@ -63,7 +63,25 @@
      path's shape (8 steps x 200 samples) on the card against its CPU run
      on the same nullspace basis, each held to the float64 solution of
      that basis (its float32 roots are noisy there), with the solve's time
-     per chunk and the SVD's time, kernels and stream syncs.
+     per chunk and the SVD's time, kernels and stream syncs;
+   - the latency mode (``OdometrySystem``: persistent track table, per-frame
+     VO, windowed BA every 5 keyframes) on the stereo world from host
+     frames, ``OdometryConfig`` at its defaults, VO only and with BA, RANSAC
+     seeds 0-2: K1 ``K1_PER_LATENCY_RUN`` times a run (batch 1), every call
+     held to plain; each run at least JAX's steps less one, each mode's
+     median ATE within 1.5x JAX's on the CPU (``tools/jax_latency_reference.py``)
+     and BA's below 0.95x VO's; then frames/s (a warm-up, 3 timed runs),
+     stream syncs per frame, kernels, device time and K1's time per run;
+   - the parallax gate on the near_stop world (18 frames at 376x1241,
+     ``parallax=2.0`` against 0): at most 14 keyframes, the gated ATE below
+     max(1.2x the ungated, 0.05 m); a checkpoint on the card after 20
+     frames, resumed in a fresh system: the same keyframes, every pose
+     within 1e-5 m of the uninterrupted run;
+   - Grunert P3P on 200 random scenes on the card (>= 95 % recovered), and
+     staged stereo with ``hyp_solver="p3p"``, seeds 0-2 (all steps, median
+     ATE within 1.5x JAX's); the staged cross-modal session with the
+     5-point solver, seed 0 (JAX's steps less one, median scale error
+     within 1.5x JAX's).
 6. Times each path's frames/s (median of 3 after the measured run; the
    streaming engines end to end, with their in-run upload figures; the
    mono engines with K1's device time per run), counts its stream syncs (the stereo and cross-modal figures beside those from
@@ -219,12 +237,34 @@ FIVEPOINT_SLACK = 0.05
 TOPK_SEEDS = (0, 1, 2, 3, 4)
 JAX_TOPK = {"ate_m": [0.14897930153217467, 0.19743871820214268, 0.10794871517741095,
                       0.1599980819142645, 0.1135857873009703]}
+# The latency mode (OdometrySystem, OdometryConfig at its defaults) on the
+# stereo world, RANSAC seeds 0-2, VO only and with BA, and the staged stereo
+# engine with hyp_solver="p3p" on the same seeds: the JAX reference's ATE on
+# the CPU (tools/jax_latency_reference.py --seeds 0 1 2 --p3p; every JAX run
+# solved all 39 steps). The port's medians are held to 1.5 x JAX's.
+LATENCY_SEEDS = (0, 1, 2)
+JAX_LATENCY = {"vo": [0.022987659193966024, 0.01876230733284683, 0.021238667183053075],
+               "ba": [0.01388040293514645, 0.012180455423105621, 0.012049889755797656],
+               "n_success": 39,
+               "p3p": [0.03805004251701376, 0.03718505572428405, 0.030034786751669644]}
+# K1 calls of a latency run: bootstrap_frame's match_stereo (4), then per
+# frame KLT's template and tile at 4 levels (8) and two match_stereo (8)
+K1_PER_LATENCY_RUN = 4 + (N_FRAMES - 1) * 16
+PARALLAX_FRAMES = 18  # the near_stop world of tests/test_odometry.py:59-85, at full size
+CKPT_AT = 20  # frames before the checkpoint of the resume phase
+P3P_SCENES = 200
+# the staged cross-modal session with MonoVOParams(solver="5point") on the
+# cross-modal world, RANSAC seed 0: JAX on the CPU
+# (tools/jax_cross_modal_reference.py --seeds 0 --solver 5point)
+JAX_CM_5POINT = {"n_success": 39, "scale_err_median": 0.00929018855094874,
+                 "ate_m": 0.20533835538727596}
 # K1's cases on the paths, each (batches, images, tiles, features) held to
 # its plain version by check_gather: the stereo, cross-modal and integrated
-# paths; the mono engine; the per-frame cross-modal loop (run_cross_modal)
+# paths; the mono engine; the per-frame loops (run_cross_modal and the
+# latency mode: batch 1, every path shape)
 K1_HELD = [(K1_PATH_BATCHES, LEVELS, list(SHAPES), N_FEATURES),
            (MONO_BATCHES, MONO_LEVELS, KLT_SHAPES, MONO_FEATURES),
-           ((1,), LEVELS, KLT_SHAPES, N_FEATURES)]
+           ((1,), LEVELS, list(SHAPES), N_FEATURES)]
 
 
 def held_cases() -> set:
@@ -415,7 +455,11 @@ class GatherShim:
         if self.check:
             from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
 
-            if not torch.equal(out, kg.gather_tiles_plain(img, anchors, tile_h, tile_w)):
+            h, w = img.shape[-2:]
+            n = anchors.shape[-2]
+            want = kg.gather_tiles_plain(img.reshape(-1, h, w), anchors.reshape(-1, n, 2),
+                                         tile_h, tile_w)
+            if not torch.equal(out.reshape(want.shape), want):
                 raise AssertionError(f"K1 differs from its plain version on a path call: "
                                      f"batch {tuple(img.shape[:-2])}, tiles {key}")
             self.checked += 1
@@ -427,6 +471,49 @@ class GatherShim:
 
     def __exit__(self, *exc):
         self._im.gather_tiles = self._real
+
+
+class MIShim:
+    """Stands in for ``kernels/mi.py``'s ``mi_pairs`` and ``mi_strip`` while
+    entered: it calls the real wrappers and holds every call's scores to
+    the plain version's on the same inputs (within ``K2_TOL``, NaN where the
+    plain version is NaN), counting the calls by mode and shape."""
+
+    def __init__(self):
+        from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+        self._kmi, self._real = kmi, (kmi.mi_pairs, kmi.mi_strip)
+        self.cases = {}  # (mode, *input shapes) -> calls
+        self.checked, self.worst = 0, 0.0
+
+    def _hold(self, got, want, case):
+        self.cases[case] = self.cases.get(case, 0) + 1
+        fin = torch.isfinite(want)
+        err = float((got - want)[fin].abs().max()) if bool(fin.any()) else 0.0
+        if not (torch.equal(torch.isfinite(got), fin) and err <= K2_TOL):
+            raise AssertionError(f"K2 differs from its plain version on a path call {case}: "
+                                 f"{err}")
+        self.checked += 1
+        self.worst = max(self.worst, err)
+        return got
+
+    def pairs(self, qa, qb, rep=1, n_valid=None, bins=20):
+        got = self._real[0](qa, qb, rep, n_valid, bins)
+        n_valid = qa.shape[-1] if n_valid is None else int(n_valid)
+        want = self._kmi.mi_pairs_plain(qa, qb, rep, n_valid, bins)
+        return self._hold(got, want, ("pairs", tuple(qa.shape), tuple(qb.shape)))
+
+    def strip(self, qa, strip, bins=20):
+        got = self._real[1](qa, strip, bins)
+        want = self._kmi.mi_strip_plain(qa, strip, bins)
+        return self._hold(got, want, ("strip", tuple(qa.shape), tuple(strip.shape)))
+
+    def __enter__(self):
+        self._kmi.mi_pairs, self._kmi.mi_strip = self.pairs, self.strip
+        return self
+
+    def __exit__(self, *exc):
+        self._kmi.mi_pairs, self._kmi.mi_strip = self._real
 
 
 def kernel_times_ms(fn, kernel: str, launches: int, least: int | None = None,
@@ -827,14 +914,14 @@ def small_cross_modal_agrees(dev) -> tuple[float, float]:
     pixel across a bin edge and nudge the MI-LM's end point)."""
     from uasl_motion_estimation_tpu_torch.models import cross_modal as tcm
     from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
-    from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
+    from uasl_motion_estimation_tpu_torch.models.mono_pipeline import make_mono_samplers
     from uasl_motion_estimation_tpu_torch.utils import synthetic
 
     rig = small_rig()
     seq = synthetic.SyntheticStereoSequence(n_frames=6, rig=rig, seed=3, cross_modal=True)
     frames = [seq.frame(i) for i in range(6)]
     cfg = cross_modal_config(rig, matcher=MatcherConfig(max_disparity=64), max_features=256)
-    cpu_sampler = make_sampler(0, cfg.vo.n_ransac, k=tcm.MINIMAL_SET)
+    cpu_sampler = make_mono_samplers(0, cfg.vo)[0]
 
     def sampler(step, valid):
         return cpu_sampler(step, valid.cpu()).to(valid.device)
@@ -1052,9 +1139,10 @@ def streaming_paths(dev, rig, frames, pipe, staged_traj, unified_res, card) -> d
     return out
 
 
-def device_kernels(fn) -> tuple[int, float]:
-    """CUDA kernels that ``fn`` launches and their summed device time (ms),
-    by ``torch.profiler``."""
+def profile_kernels(fn, name: str) -> tuple[int, float, list[float]]:
+    """CUDA kernels that ``fn`` launches, their summed device time (ms) and
+    the device time of each launch whose name holds ``name``, from one
+    ``torch.profiler`` run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1063,7 +1151,14 @@ def device_kernels(fn) -> tuple[int, float]:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(kernels), sum(1e-3 * e.time_range.elapsed_us() for e in kernels)
+    return (len(kernels), sum(1e-3 * e.time_range.elapsed_us() for e in kernels),
+            [1e-3 * e.time_range.elapsed_us() for e in kernels if name in e.name])
+
+
+def device_kernels(fn) -> tuple[int, float]:
+    """CUDA kernels that ``fn`` launches and their summed device time (ms),
+    by ``torch.profiler``."""
+    return profile_kernels(fn, "")[:2]
 
 
 def event_ms(fn, reps: int = 5) -> list[float]:
@@ -1089,16 +1184,23 @@ def path_k1(name: str, run, launches: int) -> dict:
     time over another run (profiler)."""
     with GatherShim(check=True) as shim:
         run()
+    check_path_k1(name, shim, launches)
+    k1 = kernel_times_ms(run, K1_KERNEL, launches)
+    return {"k1_calls": launches, "k1_held": shim.checked, "k1_ms_per_run": None if k1 is None
+            else sum(k1), "k1_cases": sorted(shim.batches)}
+
+
+def check_path_k1(name: str, shim: GatherShim, launches: int) -> None:
+    """A path run under ``GatherShim(check=True)``: every K1 launch of the
+    run was a call the shim held to the plain version, and every (batch,
+    tile, image) of them is a case ``check_gather`` holds."""
     calls = sum(shim.counts.values())
-    if calls != launches or shim.checked != calls:
+    if not calls == shim.checked == launches:
         raise AssertionError(f"{name}: the shim saw {calls} K1 calls ({shim.checked} checked), "
                              f"the launch count says {launches}")
     if not shim.batches <= held_cases():
         raise AssertionError(f"{name} gave K1 cases check_gather never held: "
                              f"{sorted(shim.batches - held_cases())}")
-    k1 = kernel_times_ms(run, K1_KERNEL, calls)
-    return {"k1_calls": calls, "k1_held": shim.checked, "k1_ms_per_run": None if k1 is None
-            else sum(k1), "k1_cases": sorted(shim.batches)}
 
 
 def mono_world():
@@ -1232,6 +1334,282 @@ def mono_fivepoint(dev, rig, frames, card) -> dict:
           f"{out['svd_kernels']} kernels, {out['svd_syncs']} syncs; candidates "
           f"{np.median(out['candidates_ms']):.2f} ms, {out['candidates_kernels']} kernels, "
           f"{out['candidates_syncs']} syncs; card {card}", flush=True)
+    return out
+
+
+def latency_config(rig, **over):
+    from uasl_motion_estimation_tpu_torch.models.odometry import OdometryConfig
+    from uasl_motion_estimation_tpu_torch.models.stereo_vo import StereoVOParams
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+
+    intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
+    return OdometryConfig(vo=StereoVOParams(intr1=intr, intr2=intr, baseline=rig.baseline),
+                          **over)
+
+
+def latency_mode(dev, rig, frames, gt, card) -> dict:
+    """The latency mode (``OdometrySystem``: persistent tracks, per-frame
+    VO, windowed BA every 5 keyframes) on the stereo world from host
+    frames, ``OdometryConfig`` at its defaults, VO only and with BA, RANSAC
+    seeds 0-2: K1 launched ``K1_PER_LATENCY_RUN`` times in the first run and
+    every call of another held to plain; each run solves at least JAX's
+    steps less one; each mode's median ATE within 1.5x JAX's on the CPU
+    (``JAX_LATENCY``) and BA's median below 0.95x VO's. Then per mode, on
+    seed 0: one warm-up and 3 timed runs (frames/s over the 39 steps),
+    stream syncs per frame, CUDA kernels and their device time per run, K1's
+    device time per run."""
+    from uasl_motion_estimation_tpu_torch.models.odometry import OdometrySystem
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    cfg = latency_config(rig)
+    out: dict = {}
+    for mode in ("vo", "ba"):
+        use_ba = mode == "ba"
+        m: dict = {"seeds": list(LATENCY_SEEDS), "ate_m": [], "n_success": [],
+                   "n_keyframes": [], "ba_cost": []}
+        for seed in LATENCY_SEEDS:
+            log = metrics.MetricsLogger()
+            system = OdometrySystem(cfg, seed=seed, logger=log, use_ba=use_ba, device=dev)
+            kg.GATHER.launches = kmi.MI.launches = 0
+            traj = system.run(frames)
+            m.setdefault("launches", {"gather_tiles": kg.GATHER.launches,
+                                      "mi_hist": kmi.MI.launches})
+            if traj.shape != (N_FRAMES, 4, 4) or not np.isfinite(traj).all():
+                raise AssertionError(f"latency {mode}, seed {seed}: bad trajectory {traj.shape}")
+            m["ate_m"].append(float(metrics.ate_rmse(traj[:, :3, 3], gt)))
+            m["n_success"].append(sum(bool(r.get("success")) for r in log.records))
+            m["n_keyframes"].append(system.n_keyframes)
+            m["ba_cost"].append([r["ba_cost"] for r in log.records if "ba_cost" in r])
+
+        def run():
+            OdometrySystem(cfg, seed=0, use_ba=use_ba, device=dev).run(frames)
+
+        k1 = m["launches"]["gather_tiles"]
+        if k1 != K1_PER_LATENCY_RUN:
+            raise AssertionError(f"latency {mode}: {m['launches']} launches, K1 expected "
+                                 f"{K1_PER_LATENCY_RUN} times")
+        with GatherShim(check=True) as shim:
+            run()
+        check_path_k1(f"latency {mode}", shim, k1)
+        m.update(k1_calls=k1, k1_held=shim.checked, k1_cases=sorted(shim.batches))
+        run()  # warm-up
+        times = timed_runs(run)
+        m["run_s"] = times
+        m["fps"] = (N_FRAMES - 1) / float(np.median(times))
+        m["syncs_per_frame"] = count_syncs(run) / N_FRAMES
+        # all kernels and K1's own launches from one profiled run (the
+        # profiler can drop launches: K1's time is kept only if it saw all)
+        m["kernels_per_run"], m["device_ms_per_run"], k1_ms = profile_kernels(run, K1_KERNEL)
+        m["k1_ms_per_run"] = sum(k1_ms) if len(k1_ms) == k1 else None
+        m["idle"] = 1.0 - m["device_ms_per_run"] / (1e3 * float(np.median(times)))
+        m["median_ate_m"] = float(np.median(m["ate_m"]))
+        m["jax_median_ate_m"] = jax_med = float(np.median(JAX_LATENCY[mode]))
+        print(f"latency mode, {mode}: {m['fps']:.2f} frames/s ({N_FRAMES - 1} steps; runs "
+              f"{times} s), "
+              f"{m['syncs_per_frame']:.2f} stream syncs per frame, {m['kernels_per_run']} "
+              f"kernels and {m['device_ms_per_run']:.1f} ms of device time per run (idle "
+              f"{100 * m['idle']:.0f} %), K1 {m['k1_calls']} launches and "
+              f"{m['k1_ms_per_run']} ms per run, every call equal to plain; seeds "
+              f"{list(LATENCY_SEEDS)}: ATE {np.round(m['ate_m'], 5).tolist()} m, median "
+              f"{m['median_ate_m']:.5f} m (JAX on the CPU {jax_med:.5f} m, gate 1.5x), "
+              f"successful steps {m['n_success']}/{N_FRAMES - 1}, keyframes "
+              f"{m['n_keyframes']}, BA costs (seed 0) "
+              f"{np.round(m['ba_cost'][0], 4).tolist()}; card {card}", flush=True)
+        if min(m["n_success"]) < JAX_LATENCY["n_success"] - 1 \
+                or not m["median_ate_m"] <= 1.5 * jax_med:
+            raise AssertionError(f"latency {mode}: {m}")
+        out[mode] = m
+    if not out["ba"]["median_ate_m"] < 0.95 * out["vo"]["median_ate_m"]:
+        raise AssertionError(f"latency: BA median ATE {out['ba']['median_ate_m']} is not below "
+                             f"0.95 x VO's {out['vo']['median_ate_m']}")
+    return out
+
+
+def parallax_gate(dev, card) -> dict:
+    """The parallax keyframe gate at full size: the near_stop stress world
+    (``CameraRig()``, 18 frames, world seed 7, RANSAC seed 1, VO only) with
+    ``parallax=2.0`` against ``parallax=0``: the gate holds at least 4
+    frames, every frame with no gate is a keyframe, and the gated ATE is
+    below max(1.2x the ungated one, 0.05 m). Every K1 call of both runs is
+    held to the plain version, at a case ``check_gather`` holds."""
+    from uasl_motion_estimation_tpu_torch.models.odometry import OdometrySystem
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.utils import metrics, synthetic
+
+    rig = synthetic.CameraRig()
+    n = PARALLAX_FRAMES
+    seq = synthetic.SyntheticStereoSequence(
+        n_frames=n, rig=rig, seed=7, trajectory=synthetic.stress_trajectory("near_stop", n))
+    frames = [seq.frame(i) for i in range(n)]
+    out: dict = {"frames": n}
+    for parallax in (0.0, 2.0):
+        log = metrics.MetricsLogger()
+        system = OdometrySystem(latency_config(rig, parallax=parallax), seed=1, logger=log,
+                                use_ba=False, device=dev)
+        kg.GATHER.launches = 0
+        with GatherShim(check=True) as shim:
+            traj = system.run(frames)
+        check_path_k1(f"parallax {parallax:g}", shim, kg.GATHER.launches)
+        out[f"parallax_{parallax:g}"] = {
+            "n_keyframes": system.n_keyframes, "launches": kg.GATHER.launches,
+            "k1_held": shim.checked, "k1_cases": sorted(shim.batches),
+            "ate_m": float(metrics.ate_rmse(traj[:, :3, 3], seq.gt_positions())),
+            "median_flow_px": [r.get("median_flow_px") for r in log.records[1:]]}
+    free, gated = out["parallax_0"], out["parallax_2"]
+    print(f"parallax gate, near_stop world {rig.height}x{rig.width}, {n} frames: keyframes "
+          f"{gated['n_keyframes']} gated (2 px) against {free['n_keyframes']}; ATE "
+          f"{gated['ate_m']:.5f} m gated, {free['ate_m']:.5f} m not; median flows (gated) "
+          f"{gated['median_flow_px']}; K1 {free['launches']} and {gated['launches']} launches, "
+          f"every call equal to plain; card {card}", flush=True)
+    if min(free["launches"], gated["launches"]) <= 0 or free["n_keyframes"] != n \
+            or gated["n_keyframes"] > n - 4 \
+            or not gated["ate_m"] < max(1.2 * free["ate_m"], 0.05):
+        raise AssertionError(f"parallax gate: {out}")
+    return out
+
+
+def checkpoint_resume(dev, rig, frames, card) -> dict:
+    """Checkpoint on the card: 20 frames with BA (seed 0), saved; a fresh
+    system loads it and runs the other 20. Against the uninterrupted run:
+    the same keyframe decisions and every pose within 1e-5 m."""
+    import tempfile
+
+    from uasl_motion_estimation_tpu_torch.models.odometry import OdometrySystem
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+    from uasl_motion_estimation_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = latency_config(rig)
+    log_a = metrics.MetricsLogger()
+    whole = OdometrySystem(cfg, seed=0, logger=log_a, use_ba=True, device=dev).run(frames)
+    log_b = metrics.MetricsLogger()
+    first = OdometrySystem(cfg, seed=0, logger=log_b, use_ba=True, device=dev)
+    first.run(frames[:CKPT_AT])
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/ckpt.npz"
+        save_checkpoint(path, first)
+        resumed = OdometrySystem(cfg, seed=0, logger=log_b, use_ba=True, device=dev)
+        load_checkpoint(path, resumed)
+    traj = resumed.run(frames[CKPT_AT:])
+    out = {"max_pose_diff_m": float(np.abs(traj[:, :3, 3] - whole[:, :3, 3]).max()),
+           "max_rotation_diff": float(np.abs(traj[:, :3, :3] - whole[:, :3, :3]).max()),
+           "same_keyframes": [r.get("keyframe") for r in log_a.records]
+           == [r.get("keyframe") for r in log_b.records],
+           "same_ba_schedule": ["ba_cost" in r for r in log_a.records]
+           == ["ba_cost" in r for r in log_b.records]}
+    print(f"checkpoint on the card after {CKPT_AT} frames, resumed in a fresh system: largest "
+          f"position difference from the uninterrupted run {out['max_pose_diff_m']:.3g} m, "
+          f"rotation {out['max_rotation_diff']:.3g}; keyframe decisions agree: "
+          f"{out['same_keyframes']}, BA schedule agrees: {out['same_ba_schedule']}; card {card}",
+          flush=True)
+    if traj.shape != whole.shape or not out["same_keyframes"] or not out["same_ba_schedule"] \
+            or not out["max_pose_diff_m"] <= 1e-5:
+        raise AssertionError(f"checkpoint resume: {out}")
+    return out
+
+
+def p3p_phase(dev, rig, ls, rs, gt, card) -> dict:
+    """Grunert P3P on the card: 200 random scenes (3 points 10-30 m deep,
+    random poses), the share whose best candidate recovers the true pose
+    within 1e-3 (rotation entries and translation), at least 95 %; then
+    staged stereo VO with ``hyp_solver="p3p"`` on the stereo world, RANSAC
+    seeds 0-2: K1 launched, every K1 call held to the plain version at a
+    case ``check_gather`` holds, all steps, the median ATE within 1.5x
+    JAX's on the CPU (``JAX_LATENCY["p3p"]``)."""
+    from uasl_motion_estimation_tpu_torch.models.pipeline import OdometryPipeline, default_config
+    from uasl_motion_estimation_tpu_torch.ops import lie, pnp
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(2)
+    R = lie.so3_exp(torch.from_numpy(rng.normal(size=(P3P_SCENES, 3)) * 0.3)).numpy()
+    t = rng.normal(size=(P3P_SCENES, 3))
+    cam = np.stack([rng.uniform(-6, 6, (P3P_SCENES, 3)), rng.uniform(-3, 3, (P3P_SCENES, 3)),
+                    rng.uniform(10, 30, (P3P_SCENES, 3))], axis=-1)
+    world = np.einsum("nji,nkj->nki", R, cam - t[:, None])
+    rays = cam / np.linalg.norm(cam, axis=-1, keepdims=True)
+    Rc, tc, ok = (x.cpu().numpy() for x in pnp.p3p_grunert(
+        torch.from_numpy(world.astype(np.float32)).to(dev),
+        torch.from_numpy(rays.astype(np.float32)).to(dev)))
+    err = np.maximum(np.abs(Rc - R[:, None]).max(axis=(-2, -1)),
+                     np.abs(tc - t[:, None]).max(axis=-1))
+    out: dict = {"scenes": P3P_SCENES,
+                 "recovered": float((np.where(ok, err, np.inf).min(axis=1) < 1e-3).mean()),
+                 "candidates_ok": float(ok.mean())}
+    cfg = default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), rig.baseline,
+                         hyp_solver="p3p")
+    out.update(seeds=list(LATENCY_SEEDS), ate_m=[], n_success=[])
+    for seed in LATENCY_SEEDS:
+        log = metrics.MetricsLogger()
+        kg.GATHER.launches = 0
+        with GatherShim(check=True) as shim:
+            traj = OdometryPipeline(cfg, seed=seed, device=dev, logger=log).run_staged(
+                ls, rs, chunk=CHUNK)
+        check_path_k1(f"p3p stereo, seed {seed}", shim, kg.GATHER.launches)
+        out.setdefault("launches", kg.GATHER.launches)
+        out.setdefault("k1_cases", sorted(shim.batches))
+        if traj.shape != (N_FRAMES, 4, 4) or not np.isfinite(traj).all():
+            raise AssertionError(f"p3p stereo, seed {seed}: bad trajectory {traj.shape}")
+        out["ate_m"].append(float(metrics.ate_rmse(traj[:, :3, 3], gt)))
+        out["n_success"].append(sum(bool(r["success"]) for r in log.records))
+    out["median_ate_m"] = float(np.median(out["ate_m"]))
+    out["jax_median_ate_m"] = jax_med = float(np.median(JAX_LATENCY["p3p"]))
+    print(f"P3P on the card: the best candidate recovers the pose in "
+          f"{100 * out['recovered']:.1f} % of {P3P_SCENES} scenes; staged stereo with "
+          f"hyp_solver=p3p, seeds {list(LATENCY_SEEDS)}: ATE "
+          f"{np.round(out['ate_m'], 5).tolist()} m, median {out['median_ate_m']:.5f} m (JAX on "
+          f"the CPU {jax_med:.5f} m, gate 1.5x), successful steps {out['n_success']}, K1 "
+          f"{out['launches']} launches a run, every call equal to plain; card {card}",
+          flush=True)
+    if out["recovered"] < 0.95 or out["launches"] <= 0 \
+            or min(out["n_success"]) < N_FRAMES - 1 or not out["median_ate_m"] <= 1.5 * jax_med:
+        raise AssertionError(f"p3p: {out}")
+    return out
+
+
+def cross_modal_fivepoint(dev, rig, staged, gt, card) -> dict:
+    """The staged cross-modal session with ``MonoVOParams(solver="5point")``
+    on the cross-modal world, RANSAC seed 0, once: K1 and K2 launched,
+    every K1 call held to the plain version exactly (at a case
+    ``check_gather`` holds) and every K2 call within ``K2_TOL``, at least
+    JAX's successful steps less one, the median scale error within 1.5x
+    JAX's on the CPU (``JAX_CM_5POINT``)."""
+    from uasl_motion_estimation_tpu_torch.models.cross_modal import run_cross_modal_staged
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    base = cross_modal_config(rig)
+    cfg = base._replace(vo=base.vo._replace(solver="5point"))
+    kg.GATHER.launches = kmi.MI.launches = kmi.MI.strip_launches = 0
+    with GatherShim(check=True) as shim, MIShim() as mi_shim:
+        res = run_cross_modal_staged(staged, cfg, seed=0, chunk=CHUNK, device=dev)
+    check_path_k1("cross-modal 5point", shim, kg.GATHER.launches)
+    if mi_shim.checked != kmi.MI.launches:
+        raise AssertionError(f"cross-modal 5point: {kmi.MI.launches} K2 launches, "
+                             f"{mi_shim.checked} held to plain")
+    gt_speed = np.linalg.norm(np.diff(gt, axis=0), axis=1)
+    err = np.abs(res.scales - gt_speed) / gt_speed
+    out = {"launches": {"gather_tiles": kg.GATHER.launches, "mi_hist": kmi.MI.launches},
+           "k2_by_mode": {"strip": kmi.MI.strip_launches,
+                          "pairs": kmi.MI.launches - kmi.MI.strip_launches},
+           "k1_cases": sorted(shim.batches), "k2_max_abs_err": mi_shim.worst,
+           "k2_cases": {str(k): v for k, v in mi_shim.cases.items()},
+           "n_success": sum(bool(r["success"]) for r in res.records),
+           "scale_err_median": float(np.median(err)), "scale_err_max": float(err.max()),
+           "ate_m": float(metrics.ate_rmse(res.trajectory[:, :3, 3], gt))}
+    print(f"cross-modal, solver=5point (staged, seed 0): {out['n_success']}/{N_FRAMES - 1} "
+          f"steps (JAX {JAX_CM_5POINT['n_success']}), scale error median "
+          f"{out['scale_err_median']:.5f} (JAX {JAX_CM_5POINT['scale_err_median']:.5f}, gate "
+          f"1.5x) max {out['scale_err_max']:.5f}, ATE {out['ate_m']:.5f} m (JAX "
+          f"{JAX_CM_5POINT['ate_m']:.5f} m), launches {out['launches']}, K2 by mode "
+          f"{out['k2_by_mode']}; every K1 call equal to plain, every K2 call within "
+          f"{mi_shim.worst:.3g} of plain (tolerance {K2_TOL}); card {card}", flush=True)
+    if min(out["launches"].values()) <= 0 or out["n_success"] < JAX_CM_5POINT["n_success"] - 1 \
+            or not out["scale_err_median"] <= 1.5 * JAX_CM_5POINT["scale_err_median"]:
+        raise AssertionError(f"cross-modal 5point: {out}")
     return out
 
 
@@ -1543,11 +1921,20 @@ def main() -> int:
     rights_u8 = list(np.clip(rs_cm, 0, 255).astype(np.uint8))
     cm_frame = cross_modal_per_frame(dev, rig, frames, rights_u8, gt, card)
     mono = mono_path(dev, card)
+
+    # --- the latency mode, its parallax gate and checkpoint, P3P, and the
+    # cross-modal session with the 5-point solver ---
+    latency = latency_mode(dev, rig, frames, gt, card)
+    parallax = parallax_gate(dev, card)
+    ckpt = checkpoint_resume(dev, rig, frames, card)
+    p3p = p3p_phase(dev, rig, ls, rs, gt, card)
+    cm5 = cross_modal_fivepoint(dev, rig, staged, gt, card)
     print(json.dumps({"paths": {
         "stereo": {"syncs": stereo_syncs, "syncs_before": SYNCS_BEFORE["stereo"]},
         "cross_modal": {"syncs": cm_syncs, "syncs_before": SYNCS_BEFORE["cross_modal"]},
         "integrated": integ, **streams, "stereo_topk": topk, "cross_modal_per_frame": cm_frame,
-        "mono": mono}, "card": card}))
+        "mono": mono, "latency": latency, "parallax_gate": parallax, "checkpoint": ckpt,
+        "p3p": p3p, "cross_modal_5point": cm5}, "card": card}))
 
     # --- kernel timings ---
     tg, event_floor = time_gather(dev, shim.calls)
@@ -1589,7 +1976,12 @@ def main() -> int:
                              "stereo_topk": topk["launches"],
                              "cross_modal_per_frame": cm_frame["launches"]["gather_tiles"],
                              **{f"mono_{name}": mono[name]["launches"] for name in mono
-                                if name != "fivepoint"}},
+                                if name != "fivepoint"},
+                             "latency_vo": latency["vo"]["launches"]["gather_tiles"],
+                             "latency_ba": latency["ba"]["launches"]["gather_tiles"],
+                             "parallax_gate": parallax["parallax_2"]["launches"],
+                             "stereo_p3p": p3p["launches"],
+                             "cross_modal_5point": cm5["launches"]["gather_tiles"]},
         "max_abs_err": k1_err,
         "ms": strip["ms"],
         "warm_ms": strip["warm_ms"],
@@ -1605,6 +1997,8 @@ def main() -> int:
         "per_run_launches_integrated": integ["k1_calls"],
         "per_run_ms_mono": {name: mono[name]["k1_ms_per_run"] for name in mono
                             if name != "fivepoint"},
+        "per_run_ms_latency": {mode: latency[mode]["k1_ms_per_run"] for mode in latency},
+        "per_run_launches_latency": {mode: latency[mode]["k1_calls"] for mode in latency},
         "kernel_ms": strip["kernel_ms"],
         "event_floor_ms": event_floor,
         "timings": {name: {key: r[key] for key in (
@@ -1618,7 +2012,9 @@ def main() -> int:
         "launches": cm_launches["mi_hist"],
         "launches_by_path": {"stereo": stereo_launches["mi_hist"],
                              "cross_modal": cm_launches["mi_hist"],
-                             "integrated": integ["launches"]["mi_hist"]},
+                             "integrated": integ["launches"]["mi_hist"],
+                             "latency_vo": latency["vo"]["launches"]["mi_hist"],
+                             "cross_modal_5point": cm5["launches"]["mi_hist"]},
         "max_abs_err": max(k2_err, strip_t["max_abs_err"]),
         "ms": strip_t["ms"],
         "plain_ms": strip_t["plain_ms"],

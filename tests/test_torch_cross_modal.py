@@ -316,6 +316,41 @@ def test_session_own_sampler_meets_bars_and_engines_agree(world):
     np.testing.assert_array_equal(again.trajectory, staged.trajectory)
 
 
+@pytest.mark.parametrize("solver", ["5point", "hybrid"])
+def test_session_runs_fivepoint_and_hybrid(world, solver):
+    """The session with the 5-point and hybrid mono solvers, as JAX's runs
+    them (its samples from ``make_mono_samplers``: width 5 for the 5-point,
+    width 8 and the stream-5 escalation for the hybrid, which escalates
+    every step at ``hybrid_ratio=2.0``). A step's motion equals
+    ``mono_vo_solve``'s on the same tracks and samples (that function is
+    held to JAX by tests/test_torch_mono_solvers.py), and both engines
+    solve the first 4 steps (64 samples each)."""
+    from uasl_motion_estimation_tpu_torch.models.mono_pipeline import make_mono_samplers
+    from uasl_motion_estimation_tpu_torch.models.mono_vo import mono_vo_solve
+
+    seq, wire, gt_speed = world
+    base = from_reference_config(jax_config())
+    cfg = base._replace(vo=base.vo._replace(solver=solver, n_ransac=64, hybrid_ratio=2.0))
+    sampler, sampler5 = make_mono_samplers(0, cfg.vo)
+    prev, cur, right = (torch.from_numpy(x) for x in (wire[0][0], wire[1][0], wire[1][1]))
+    out = tcm.cross_modal_step(prev, cur, right, 0, sampler, cfg, 1.0, sampler5)
+    feats, _, v0 = tim.detect_features_grid(prev, max_features=cfg.max_features,
+                                            quality_level=cfg.detect_quality)
+    tracked = tfe.klt_track(prev, cur, feats, v0, cfg.klt)
+    samples5 = sampler5(0, tracked.valid) if solver == "hybrid" else None
+    res = mono_vo_solve(torch.stack([feats, tracked.pts], dim=-2), tracked.valid,
+                        sampler(0, tracked.valid), cfg.vo, samples5)
+    assert sampler(0, tracked.valid).shape[-1] == (5 if solver == "5point" else 8)
+    assert bool(out.vo_success) and bool(res.success)
+    torch.testing.assert_close(out.R, res.R, rtol=0, atol=0)
+    torch.testing.assert_close(out.t, res.t, rtol=0, atol=0)
+    for run in (lambda: tcm.run_cross_modal_staged(wire[:5], cfg, chunk=2, device="cpu"),
+                lambda: tcm.run_cross_modal(wire[:5], cfg, device="cpu")):
+        got = run()
+        assert [r["success"] for r in got.records] == [True] * 4
+        assert np.isfinite(got.trajectory).all() and np.isfinite(got.scales).all()
+
+
 def test_entry_points_need_a_card_or_cpu(monkeypatch, world):
     """With no card and no device given, the entry points raise instead of
     running on the CPU."""

@@ -1,8 +1,8 @@
 """Tests of the port that need a CUDA card (marker ``cuda``); they skip
 where there is none, since a CUDA kernel has no CPU mode: the tile gather
 K1, the MI joint histogram K2, and the ported paths against the port's CPU
-run (stereo VO, the cross-modal session, and the mono engine with its exact
-5-point and top-k detector). This file imports no jax, so it also runs
+run (stereo VO, the cross-modal session, the mono engine with its exact
+5-point and top-k detector, and the latency mode with its checkpoint). This file imports no jax, so it also runs
 where jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
@@ -209,7 +209,7 @@ def test_cross_modal_session_on_card_matches_cpu():
     from uasl_motion_estimation_tpu_torch.models import cross_modal as tcm
     from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
     from uasl_motion_estimation_tpu_torch.models.mono_vo import MonoVOParams
-    from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
+    from uasl_motion_estimation_tpu_torch.models.mono_pipeline import make_mono_samplers
     from uasl_motion_estimation_tpu_torch.models.scale import ScaleConfig
     from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
     from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
@@ -223,7 +223,7 @@ def test_cross_modal_session_on_card_matches_cpu():
     cfg = tcm.CrossModalConfig(vo=MonoVOParams(intr=intr),
                                scale=ScaleConfig(intr=intr, baseline=rig.baseline),
                                matcher=MatcherConfig(max_disparity=64), max_features=256)
-    cpu_sampler = make_sampler(0, cfg.vo.n_ransac, k=tcm.MINIMAL_SET)
+    cpu_sampler = make_mono_samplers(0, cfg.vo)[0]
 
     def sampler(step, valid):
         return cpu_sampler(step, valid.cpu()).to(valid.device)
@@ -357,3 +357,58 @@ def test_mono_staged_on_card_matches_cpu():
     assert sc["success"] == sg["success"] and sc["escalated"] == sg["escalated"] == list(range(5))
     np.testing.assert_allclose(tg[:, :3, 3], tc[:, :3, 3], atol=5e-3)
     np.testing.assert_allclose(tg[:, :3, :3], tc[:, :3, :3], atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_latency_mode_card_matches_cpu():
+    """The latency mode (``OdometrySystem``, BA every 2 keyframes, parallax
+    gate 1 px) on a small world on the card against the port's CPU run
+    (plain kernel versions) with the same RANSAC samples: the same keyframe
+    decisions and successes, poses within 1e-3 m; ``device=None`` is the
+    card; a checkpoint taken on the card resumes on the card to within
+    1e-5 m of the uninterrupted run."""
+    needs_card()
+    import tempfile
+
+    from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
+    from uasl_motion_estimation_tpu_torch.models.odometry import OdometryConfig, OdometrySystem
+    from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
+    from uasl_motion_estimation_tpu_torch.models.stereo_vo import StereoVOParams
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.utils import metrics, synthetic
+    from uasl_motion_estimation_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+
+    rig = synthetic.CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54,
+                              height=192, width=320)
+    seq = synthetic.SyntheticStereoSequence(n_frames=9, rig=rig, seed=4)
+    frames = [seq.frame(i) for i in range(9)]
+    intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
+    cfg = OdometryConfig(vo=StereoVOParams(intr1=intr, intr2=intr, baseline=rig.baseline),
+                         max_tracks=256, window=3, ba_rate=2, parallax=1.0,
+                         matcher=MatcherConfig(max_disparity=96))
+    cpu_sampler = make_sampler(1, cfg.vo.n_ransac)
+
+    def sampler(step, valid):
+        return cpu_sampler(step, valid.cpu()).to(valid.device)
+
+    runs = {}
+    for dev in ("cpu", None):
+        log = metrics.MetricsLogger()
+        system = OdometrySystem(cfg, seed=1, logger=log, device=dev, sampler=sampler)
+        runs[dev] = (system.run(frames), log.records, system.device.type)
+    (cpu_traj, cpu_recs, _), (traj, recs, kind) = runs["cpu"], runs[None]
+    assert kind == "cuda"
+    for key in ("keyframe", "success"):
+        assert [r.get(key) for r in recs] == [r.get(key) for r in cpu_recs], key
+    assert any("ba_cost" in r for r in recs)
+    np.testing.assert_allclose(traj[:, :3, 3], cpu_traj[:, :3, 3], rtol=0, atol=1e-3)
+
+    first = OdometrySystem(cfg, seed=1, sampler=sampler)
+    first.run(frames[:4])
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(f"{d}/c.npz", first)
+        resumed = OdometrySystem(cfg, seed=1, sampler=sampler)
+        load_checkpoint(f"{d}/c.npz", resumed)
+    np.testing.assert_allclose(resumed.run(frames[4:])[:, :3, 3], traj[:, :3, 3], rtol=0,
+                               atol=1e-5)

@@ -1,10 +1,13 @@
 """The port never imports jax and never loads a file of the JAX package,
 under any module name. Checked in a fresh interpreter that imports the port
 and runs ``OdometryPipeline.run_staged`` and ``run_streaming``,
-``run_cross_modal_staged``, the unified VO+BA engine (``run_unified_system``)
-and the mono engines (``run_mono_staged`` with the hybrid escalating every
-step, so the exact 5-point runs, and ``MonoOdometryPipeline``) on the CPU,
-then looks at every loaded module's name and ``__file__``."""
+``run_cross_modal_staged`` (with the 5-point solver too), the unified VO+BA
+engine (``run_unified_system``), the mono engines (``run_mono_staged`` with
+the hybrid escalating every step, so the exact 5-point runs, and
+``MonoOdometryPipeline``), and the latency mode (``OdometrySystem`` with BA
+and the parallax gate, checkpointed and resumed, and staged stereo VO with
+``hyp_solver="p3p"``) on the CPU, then looks at every loaded module's name
+and ``__file__``."""
 
 import subprocess
 import sys
@@ -65,6 +68,25 @@ ptraj = MonoOdometryPipeline(mcfg._replace(vo=mcfg.vo._replace(solver="pencil8")
                              device="cpu").run(mframes)
 assert ptraj.shape == (5, 4, 4) and np.isfinite(ptraj).all()
 assert fivepoint.fivepoint_candidates(torch.rand(5, 2), torch.rand(5, 2))[0].shape == (10, 3, 3)
+res5 = run_cross_modal_staged([cross.frame(i) for i in range(3)],
+                              ccfg._replace(vo=ccfg.vo._replace(solver="5point")), chunk=2,
+                              device="cpu")
+assert np.isfinite(res5.scales).all()
+from uasl_motion_estimation_tpu_torch.models.odometry import OdometryConfig, OdometrySystem
+from uasl_motion_estimation_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+import tempfile
+ocfg = OdometryConfig(vo=cfg.vo, max_tracks=64, window=3, ba_rate=2, parallax=0.5,
+                      matcher=MatcherConfig(max_disparity=32))
+osys = OdometrySystem(ocfg, device="cpu")
+otraj = osys.run(uframes[:3])
+with tempfile.TemporaryDirectory() as d:
+    save_checkpoint(d + "/c.npz", osys)
+    resumed = OdometrySystem(ocfg, device="cpu")
+    load_checkpoint(d + "/c.npz", resumed)
+otraj = resumed.run(uframes[3:])
+assert otraj.shape == (5, 4, 4) and np.isfinite(otraj).all()
+ppipe = OdometryPipeline(cfg._replace(vo=cfg.vo._replace(hyp_solver="p3p")), device="cpu")
+assert np.isfinite(ppipe.run_staged(ls, rs, chunk=2)).all()
 jax_pkg = (Path(uasl_motion_estimation_tpu_torch.__file__).resolve().parent.parent
            / "uasl_motion_estimation_tpu")
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -97,6 +97,51 @@ def test_so3_log_and_its_tangent(angle):
     close(jac, jax.vmap(jax.jacfwd(jlie.so3_log))(J(R)), rtol=0, atol=1e-6)
 
 
+def axis_angle(angle, n=8, seed=12):
+    """n rotation vectors on random axes at ``angle`` (None: 0.1-3 rad)."""
+    rng = np.random.default_rng(seed)
+    axes = rng.normal(size=(n, 3))
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    angles = rng.uniform(0.1, 3.0, n) if angle is None else np.full(n, angle)
+    return (axes * angles[:, None]).astype(np.float32)
+
+
+ANGLES = pytest.mark.parametrize("angle", [0.0, 1e-6, None, np.pi - 1e-3],
+                                 ids=["zero", "tiny", "generic", "near_pi"])
+
+
+@ANGLES
+def test_quaternion_algebra(angle):
+    """quat_exp (both branches), conj, mul, to_R, rotate, to/from Euler and
+    the XYZ/OpenCV conversions against JAX's, within 1e-6; quat_exp's
+    forward-mode Jacobian too (its Taylor branch must not leak NaN)."""
+    v = axis_angle(angle)
+    w = axis_angle(None, seed=13)
+    close(tlie.quat_exp(T(v)), jlie.quat_exp(J(v)), rtol=0, atol=1e-6)
+    q, r = tlie.quat_exp(T(v)), tlie.quat_exp(T(w))
+    jq, jr = jlie.quat_exp(J(v)), jlie.quat_exp(J(w))
+    close(tlie.quat_conj(q), jlie.quat_conj(jq), rtol=0, atol=1e-6)
+    close(tlie.quat_mul(q, r), jlie.quat_mul(jq, jr), rtol=0, atol=1e-6)
+    close(tlie.quat_to_R(q), jlie.quat_to_R(jq), rtol=0, atol=1e-6)
+    close(tlie.quat_rotate(q, T(w)), jlie.quat_rotate(jq, J(w)), rtol=0, atol=1e-6)
+    close(tlie.quat_to_euler(r), jlie.quat_to_euler(jr), rtol=0, atol=1e-6)
+    close(tlie.euler_to_quat(T(RPY)), jlie.euler_to_quat(J(RPY)), rtol=0, atol=1e-6)
+    close(tlie.quat_identity(), jlie.quat_identity(), rtol=0, atol=0)
+    for name in ("xyz_to_opencv", "opencv_to_xyz"):
+        close(getattr(tlie, name)(T(w)), getattr(jlie, name)(J(w)), rtol=0, atol=1e-6)
+    for name in ("quat_xyz_to_opencv", "quat_opencv_to_xyz"):
+        close(getattr(tlie, name)(q), getattr(jlie, name)(jq), rtol=0, atol=1e-6)
+    jac = torch.func.vmap(torch.func.jacfwd(tlie.quat_exp))(T(v)).numpy()
+    assert np.isfinite(jac).all()
+    close(jac, jax.vmap(jax.jacfwd(jlie.quat_exp))(J(v)), rtol=0, atol=1e-6)
+
+
+@ANGLES
+def test_so3_right_jacobian(angle):
+    v = axis_angle(angle)
+    close(tlie.so3_right_jacobian(T(v)), jlie.so3_right_jacobian(J(v)), rtol=0, atol=1e-6)
+
+
 # --- geometry --------------------------------------------------------------
 
 INTR = (320.0, 318.0, 160.0, 96.0)
@@ -112,6 +157,53 @@ def test_project_and_triangulate():
     uvr = uvl - np.stack([RNG.uniform(-2, 60, 40), np.zeros(40)], -1).astype(np.float32)
     close(tgeo.triangulate_disparity(T(uvl), T(uvr), ti, ti, 0.54),
           jgeo.triangulate_disparity(J(uvl), J(uvr), ji, ji, 0.54), rtol=1e-5, atol=1e-4)
+
+
+def pose_pair(seed):
+    """Two float32 poses with SPD covariances, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        q = np.asarray(jlie.quat_exp(J(rng.normal(size=3).astype(np.float32) * 0.5)))
+        t = rng.normal(size=3).astype(np.float32) * 2
+        A = rng.normal(size=(6, 6))
+        out.append((q, t, (A @ A.T * 1e-3 + 1e-4 * np.eye(6)).astype(np.float32)))
+    return out
+
+
+def close_cov(got, want):
+    """Covariances within 1e-5 of the reference's largest entry."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pose_covariance_algebra(seed):
+    """compose, invert and scale with covariance (torch.func.jacfwd against
+    jax.jacfwd through quat_exp/quat_log at the identity): poses within
+    1e-6, covariances within 1e-5 of each one's largest entry; and the
+    Pose methods (matrix, apply, compose, inverse) against JAX's."""
+    (q1, t1, c1), (q2, t2, c2) = pose_pair(seed)
+    tp1, tp2 = tgeo.Pose(T(q1), T(t1), T(c1)), tgeo.Pose(T(q2), T(t2), T(c2))
+    jp1, jp2 = jgeo.Pose(J(q1), J(t1), J(c1)), jgeo.Pose(J(q2), J(t2), J(c2))
+    for got, want in ((tgeo.compose_with_covariance(tp1, tp2),
+                       jgeo.compose_with_covariance(jp1, jp2)),
+                      (tgeo.invert_with_covariance(tp1), jgeo.invert_with_covariance(jp1)),
+                      (tgeo.scale_pose_with_covariance(tp1, 1.7, 0.01),
+                       jgeo.scale_pose_with_covariance(jp1, 1.7, 0.01))):
+        close(got.q, want.q, rtol=0, atol=1e-6)
+        close(got.t, want.t, rtol=0, atol=1e-6)
+        assert got.cov.dtype == torch.float32 and np.isfinite(got.cov.numpy()).all()
+        close_cov(got.cov, want.cov)
+    pts = RNG.uniform(-5, 5, (10, 3)).astype(np.float32)
+    close(tp1.matrix(), jp1.matrix(), rtol=0, atol=1e-6)
+    close(tp1.apply(T(pts)), jp1.apply(J(pts)), rtol=0, atol=1e-5)
+    close(tp1.compose(tp2).t, jp1.compose(jp2).t, rtol=0, atol=1e-6)
+    close(tp1.inverse().t, jp1.inverse().t, rtol=0, atol=1e-6)
+    M = np.asarray(jp2.matrix())
+    close(tgeo.pose_from_matrix(T(M)).q, jgeo.pose_from_matrix(J(M)).q, rtol=0, atol=1e-6)
+    ident = tgeo.pose_identity()
+    close(ident.matrix(), np.eye(4, dtype=np.float32), rtol=0, atol=0)
 
 
 # --- image -----------------------------------------------------------------

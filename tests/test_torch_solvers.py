@@ -190,11 +190,3 @@ def test_sampler_draws_valid_distinct_triples():
     assert bool(valid[s].all())
     assert all(len(set(t)) == 3 for t in s.tolist())
 
-
-def test_p3p_not_ported_yet():
-    uv, valid, intr = quad_matches(n=20)
-    params = from_reference_config(jvo.StereoVOParams(intr1=intr, intr2=intr, baseline=BASE,
-                                                      hyp_solver="p3p"))
-    with pytest.raises(NotImplementedError):
-        tvo.stereo_vo_solve(torch.from_numpy(uv), torch.from_numpy(valid),
-                            torch.Generator(), params)

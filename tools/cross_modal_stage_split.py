@@ -27,8 +27,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from uasl_motion_estimation_tpu_torch.models import frontend as fe  # noqa: E402
 from uasl_motion_estimation_tpu_torch.models.cross_modal import (  # noqa: E402
-    MINIMAL_SET, CrossModalConfig, run_cross_modal_staged)
-from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler  # noqa: E402
+    CrossModalConfig, run_cross_modal_staged)
+from uasl_motion_estimation_tpu_torch.models.mono_pipeline import make_mono_samplers  # noqa: E402
 from uasl_motion_estimation_tpu_torch.models.mono_vo import (  # noqa: E402
     MonoVOParams, mono_vo_solve)
 from uasl_motion_estimation_tpu_torch.models.scale import (  # noqa: E402
@@ -68,7 +68,7 @@ def host_reads(fn):
 def stage_split(ls, rs, cfg, reps=5):
     """ms and host reads per stage of the first chunk's 13 steps, in the
     order ``cross_modal._session_step`` runs them."""
-    sampler = make_sampler(0, cfg.vo.n_ransac, k=MINIMAL_SET)
+    sampler = make_mono_samplers(0, cfg.vo)[0]
     lf = ls[:CHUNK + 1].float()
     rf = rs[1:CHUNK + 1].float()
     prev, cur = lf[:-1], lf[1:]

@@ -9,7 +9,10 @@ succeeded, the relative scale errors against the true per-step travel, and
 the metric ATE; then one line with the medians over the seeds.
 
     JAX_PLATFORMS=cpu python3 tools/jax_cross_modal_reference.py [--seeds 0 1 2 3 4]
-        [--engine staged|step]
+        [--engine staged|step] [--solver pencil8|5point|hybrid]
+
+``--solver`` sets ``MonoVOParams.solver`` (default ``pencil8``, the
+configuration's own default).
 
 The seed keys only the RANSAC samples (the world is always seed 0). The
 port cannot draw JAX's samples, so its accuracy is compared with the spread
@@ -87,13 +90,14 @@ def main() -> int:
     ap.add_argument("--chunk", type=int, default=1)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--engine", choices=("staged", "step"), default="staged")
+    ap.add_argument("--solver", choices=("pencil8", "5point", "hybrid"), default="pencil8")
     args = ap.parse_args()
 
     rig = CameraRig()
     seq = SyntheticStereoSequence(n_frames=args.frames, rig=rig, seed=0, cross_modal=True)
     frames = [seq.frame(i) for i in range(args.frames)]
     intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
-    cfg = CrossModalConfig(vo=MonoVOParams(intr=intr),
+    cfg = CrossModalConfig(vo=MonoVOParams(intr=intr, solver=args.solver),
                            scale=ScaleConfig(intr=intr, baseline=rig.baseline))
     gt_speed = np.linalg.norm(np.diff(seq.poses[:, :3, 3], axis=0), axis=1)
     rows = []
@@ -111,6 +115,7 @@ def main() -> int:
                      f"cross_modal",
             "ransac_seed": seed,
             "engine": args.engine,
+            "solver": args.solver,
             "chunk": args.chunk,
             "n_success": int(sum(success)),
             "n_steps": len(success),

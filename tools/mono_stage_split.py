@@ -103,7 +103,7 @@ def stage_split(ls, cfgs, reps=5) -> dict:
         samplers = mp.make_mono_samplers(0, cfg.vo)
 
         def run():
-            state["smp_" + solver] = mp._draw_samples(steps, state["valid"], samplers, cfg)[0]
+            state["smp_" + solver] = mp.draw_samples(steps, state["valid"], samplers, cfg)[0]
         run.__name__ = f"sample_{solver}"
         return run
 

@@ -2,8 +2,8 @@
 
 The system has no weights; its state is the configuration NamedTuples.
 ``from_reference_config`` walks a JAX ``PipelineConfig``,
-``MonoPipelineConfig``, ``CrossModalConfig``, ``SmootherConfig`` or
-``BAConfig`` (or any of their parts) through ``_asdict()`` and rebuilds it
+``MonoPipelineConfig``, ``CrossModalConfig``, ``SmootherConfig``,
+``OdometryConfig`` or ``BAConfig`` (or any of their parts) through ``_asdict()`` and rebuilds it
 from the port's NamedTuples of the same names, so both sides run the
 identical configuration. It reads the tuples only and never imports jax.
 """
@@ -14,6 +14,7 @@ from .models.cross_modal import CrossModalConfig
 from .models.frontend import KLTConfig, MatcherConfig
 from .models.mono_pipeline import MonoPipelineConfig
 from .models.mono_vo import MonoVOParams
+from .models.odometry import OdometryConfig
 from .models.pipeline import PipelineConfig
 from .models.scale import ScaleConfig
 from .models.smoother import SmootherConfig
@@ -25,7 +26,7 @@ from .solvers.lm import LMConfig
 _PORT_TYPES = {t.__name__: t for t in (
     PipelineConfig, StereoVOParams, Intrinsics, MatcherConfig, KLTConfig, LMConfig,
     CrossModalConfig, MonoVOParams, MonoPipelineConfig, ScaleConfig, SmootherConfig,
-    BAConfig)}
+    BAConfig, OdometryConfig)}
 
 
 def from_reference_config(cfg):

@@ -17,7 +17,9 @@ Every step of a batch runs in lock-step (the JAX ``vmap``); MI scoring goes
 through the joint-histogram kernel K2 and patch tiles through K1. RANSAC
 samples come from a sampler called as ``sampler(step, valid)`` with the
 global step index, so the per-frame and staged engines solve each step with
-the same samples.
+the same samples: width-8 draws for ``pencil8``, width 5 for ``5point``, and
+for ``hybrid`` also the escalation's 5-point draws from ``sampler5``
+(``mono_pipeline.make_mono_samplers`` builds both).
 """
 
 from __future__ import annotations
@@ -32,11 +34,10 @@ from ..ops import geometry as geo
 from ..ops import image as im
 from ..solvers.lm import StopCondition
 from . import frontend as fe
+from .mono_pipeline import draw_samples, make_mono_samplers
 from .mono_vo import MonoVOParams, mono_vo_solve
+from .pipeline import Sampler
 from .scale import ScaleConfig, estimate_scale
-from .pipeline import Sampler, make_sampler
-
-MINIMAL_SET = 8  # matches per pencil 8-point hypothesis: make_sampler(..., k=MINIMAL_SET)
 
 
 class CrossModalConfig(NamedTuple):
@@ -80,7 +81,7 @@ def _session_step(
     cur_left: torch.Tensor,
     cur_right: torch.Tensor,
     steps: list[int],
-    sampler: Sampler,
+    samplers: tuple[Sampler, Sampler | None],
     cfg: CrossModalConfig,
     s_prev: torch.Tensor | float = 1.0,
     pyr_prev: list[torch.Tensor] | None = None,
@@ -88,7 +89,8 @@ def _session_step(
 ) -> CrossModalStep:
     """Session step for a batch of steps (global indices ``steps``) on f32
     images (B, H, W): detect -> KLT -> mono VO -> MI-matcher scale init ->
-    MI-LM scale refinement."""
+    MI-LM scale refinement. ``samplers``: (sampler, sampler5), the second
+    used by ``hybrid`` only."""
     p = cfg
     intr = p.vo.intr
 
@@ -97,8 +99,8 @@ def _session_step(
     tracked = fe.klt_track(prev_left, cur_left, feats, v0, p.klt,
                            pyr_prev=pyr_prev, pyr_next=pyr_cur)
     matches = torch.stack([feats, tracked.pts], dim=-2)
-    samples = torch.stack([sampler(s, v) for s, v in zip(steps, tracked.valid, strict=True)])
-    res = mono_vo_solve(matches, tracked.valid, samples, p.vo)
+    samples, samples5 = draw_samples(steps, tracked.valid, samplers, p)
+    res = mono_vo_solve(matches, tracked.valid, samples, p.vo, samples5)
 
     # structure in the CURRENT frame, mono gauge ||t|| = 1
     X_cur = torch.matmul(res.pts3d, res.R.transpose(-1, -2)) + res.t[..., None, :]
@@ -131,20 +133,21 @@ def _session_step(
 
 
 def cross_modal_step(prev_left, cur_left, cur_right, step: int, sampler: Sampler,
-                     cfg: CrossModalConfig, s_prev: torch.Tensor | float = 1.0
-                     ) -> CrossModalStep:
+                     cfg: CrossModalConfig, s_prev: torch.Tensor | float = 1.0,
+                     sampler5: Sampler | None = None) -> CrossModalStep:
     """One frame of the session on (H, W) images (uint8 or f32; compute is
     f32). ``s_prev``: the previous frame's scale, used when the MI matcher
-    cannot seed this frame."""
+    cannot seed this frame. ``sampler5``: the hybrid escalation's sampler."""
     imgs = [x.to(torch.float32)[None] for x in (prev_left, cur_left, cur_right)]
     s_prev = torch.as_tensor(s_prev, dtype=torch.float32, device=imgs[0].device).reshape(1)
-    out = _session_step(*imgs, [step], sampler, cfg, s_prev)
+    out = _session_step(*imgs, [step], (sampler, sampler5), cfg, s_prev)
     return CrossModalStep(*(x[0] for x in out))
 
 
 def cross_modal_sequence_scan(ls: torch.Tensor, rs: torch.Tensor, step0: int,
                               sampler: Sampler, cfg: CrossModalConfig,
-                              chunk: int = 4) -> CrossModalStep:
+                              chunk: int = 4, sampler5: Sampler | None = None
+                              ) -> CrossModalStep:
     """All n-1 steps of a staged session (n, H, W), ``chunk`` steps at a
     time. Per group, the f32 conversion and the left KLT pyramids of its
     chunk+1 frames are built once and shared by the two steps that use each
@@ -161,7 +164,8 @@ def cross_modal_sequence_scan(ls: torch.Tensor, rs: torch.Tensor, step0: int,
         rf = rs[base + 1:base + m + 1].to(torch.float32)
         pyr = im.build_pyramid(lf, cfg.klt.n_levels)
         outs.append(_session_step(
-            lf[:-1], lf[1:], rf, list(range(step0 + base, step0 + base + m)), sampler, cfg,
+            lf[:-1], lf[1:], rf, list(range(step0 + base, step0 + base + m)),
+            (sampler, sampler5), cfg,
             1.0, pyr_prev=[x[:-1] for x in pyr], pyr_cur=[x[1:] for x in pyr]))
     return CrossModalStep(*(torch.cat(xs) for xs in zip(*outs)))
 
@@ -229,15 +233,17 @@ def run_cross_modal_staged(
     scale inherits the previous one).
 
     ``frames``: (left, right) pairs, or an already staged (lefts, rights)
-    pair of uint8 (n, H, W) tensors on the device.
+    pair of uint8 (n, H, W) tensors on the device. ``sampler`` replaces the
+    solver's sampler of ``make_mono_samplers(seed, cfg.vo)``; the hybrid
+    escalation always draws from that function's second sampler.
     """
     dev = setup_device(device)
     if isinstance(frames, tuple) and len(frames) == 2 and torch.is_tensor(frames[0]):
         ls, rs = frames
     else:
         ls, rs = _stage(frames, dev)
-    sampler = sampler or make_sampler(seed, cfg.vo.n_ransac, k=MINIMAL_SET)
-    packed = _pack(cross_modal_sequence_scan(ls, rs, 0, sampler, cfg, chunk))
+    own, own5 = make_mono_samplers(seed, cfg.vo)
+    packed = _pack(cross_modal_sequence_scan(ls, rs, 0, sampler or own, cfg, chunk, own5))
 
     pose = np.eye(4)
     traj = [pose.copy()]
@@ -268,9 +274,12 @@ def run_cross_modal(
 ) -> CrossModalResult:
     """Per-frame session loop: metric trajectory over (left, right) pairs,
     each step warm-started from the previous frame's scale. Failed frames
-    keep the last pose; failed scales inherit the previous scale."""
+    keep the last pose; failed scales inherit the previous scale. Samples
+    come from ``make_mono_samplers(seed, cfg.vo)``; ``sampler`` replaces the
+    solver's."""
     dev = setup_device(device)
-    sampler = sampler or make_sampler(seed, cfg.vo.n_ransac, k=MINIMAL_SET)
+    own, own5 = make_mono_samplers(seed, cfg.vo)
+    sampler = sampler or own
     pose = np.eye(4)
     traj = [pose.copy()]
     scales, s0s, records = [], [], []
@@ -280,7 +289,7 @@ def run_cross_modal(
         left = torch.as_tensor(np.asarray(left, np.float32)).to(dev)
         right = torch.as_tensor(np.asarray(right, np.float32)).to(dev)
         if prev_left is not None:
-            out = cross_modal_step(prev_left, left, right, i - 1, sampler, cfg, s_prev)
+            out = cross_modal_step(prev_left, left, right, i - 1, sampler, cfg, s_prev, own5)
             o = _unpack(_pack(CrossModalStep(*(x[None] for x in out)))[0])
             scale = float(np.float32(o["scale"]))
             if o["vo_success"] > 0.5:

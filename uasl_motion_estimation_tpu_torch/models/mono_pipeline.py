@@ -94,7 +94,7 @@ def _track(prev, cur, feats, v0, cfg: MonoPipelineConfig, pyr_prev=None, pyr_cur
     return torch.stack([feats, tracked.pts], dim=-2), tracked.valid
 
 
-def _draw_samples(steps, valid: torch.Tensor, samplers, cfg: MonoPipelineConfig):
+def draw_samples(steps, valid: torch.Tensor, samplers, cfg: MonoPipelineConfig):
     """The solver's samples of the global ``steps`` and, for ``"hybrid"``,
     its escalation's (else None); ``samplers`` is (sampler, sampler5)."""
     sampler, sampler5 = samplers
@@ -112,7 +112,7 @@ def _step(prev, cur, steps, samplers, cfg: MonoPipelineConfig, pyr_prev=None, py
     goes to ``mono_vo_solve`` (the hybrid's escalation masks)."""
     feats, _, v0 = _detect(prev, cfg)
     matches, valid = _track(prev, cur, feats, v0, cfg, pyr_prev, pyr_cur)
-    samples, samples5 = _draw_samples(steps, valid, samplers, cfg)
+    samples, samples5 = draw_samples(steps, valid, samplers, cfg)
     res = mono_vo_solve(matches, valid, samples, cfg.vo, samples5, stats)
     return MonoFrameOutput(result=res, matches=matches, valid=valid)
 

@@ -137,11 +137,11 @@ def _inv_se3(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.cat([Rt, t], dim=-1), T[..., 3:4, :]], dim=-2)
 
 
-def _cam6_from_T(T: torch.Tensor) -> torch.Tensor:
+def cam6_from_T(T: torch.Tensor) -> torch.Tensor:
     return torch.cat([lie.so3_log(T[..., :3, :3]), T[..., :3, 3]], dim=-1)
 
 
-def _T_from_cam6(c: torch.Tensor) -> torch.Tensor:
+def T_from_cam6(c: torch.Tensor) -> torch.Tensor:
     top = torch.cat([lie.so3_exp(c[..., :3]), c[..., 3:6, None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
     bottom = torch.cat([bottom[..., :3], torch.ones_like(bottom[..., 3:])], dim=-1)
@@ -161,7 +161,7 @@ def _init_window_problem_local(motions_local: torch.Tensor, obs: torch.Tensor,
                         device=motions_local.device)]
     for j in range(1, cfg.window):
         T = torch.matmul(motions_local[..., j - 1, :, :], T)
-        cams.append(_cam6_from_T(T))
+        cams.append(cam6_from_T(T))
     cam0 = torch.stack(cams, dim=-2)  # (..., W, 6) world(=frame 0) -> cam
     pts = geo.triangulate_disparity(obs[..., 0, :, 0:2], obs[..., 0, :, 2:4], p.intr1,
                                     p.intr2, p.baseline)
@@ -232,10 +232,10 @@ def _motion_covs_from_cam_covs(cam: torch.Tensor, cam_cov: torch.Tensor) -> torc
     # torch.func gives float64 tangents through where() on 0-d float32
     # tensors, which then meet the float32 primals
     def one(c_j, c_j1, C_j, C_j1):  # (1, 6), (1, 6), (6, 6), (6, 6)
-        m0_inv = _inv_se3(_T_from_cam6(c_j1) @ _inv_se3(_T_from_cam6(c_j)))
+        m0_inv = _inv_se3(T_from_cam6(c_j1) @ _inv_se3(T_from_cam6(c_j)))
 
         def delta(d):  # (1, 12) -> (1, 6)
-            mm = _T_from_cam6(c_j1 + d[:, 6:]) @ _inv_se3(_T_from_cam6(c_j + d[:, :6]))
+            mm = T_from_cam6(c_j1 + d[:, 6:]) @ _inv_se3(T_from_cam6(c_j + d[:, :6]))
             dM = m0_inv @ mm
             return torch.cat([dM[:, :3, 3], lie.so3_log(dM[:, :3, :3])], dim=-1)
 
@@ -299,7 +299,7 @@ def _group_covariances(problems: BAProblem, res, cfg: SmootherConfig):
     refined motions (k, W-1, ...)) at the BA solution."""
     cam_cov = ba_camera_covariances(problems._replace(cam=res.cam, pts=res.pts),
                                     _ba_config(cfg))
-    Ts = _T_from_cam6(res.cam)
+    Ts = T_from_cam6(res.cam)
     refined = torch.matmul(Ts[:, 1:], _inv_se3(Ts[:, :-1]))
     return cam_cov, _motion_covs_from_cam_covs(res.cam, cam_cov), refined
 

@@ -2,9 +2,10 @@
 
 Port of ``uasl_motion_estimation_tpu/models/stereo_vo.py``
 (StereoVisualOdometry, src/vo/StereoVisualOdometry.cpp:22-342): all
-``n_ransac`` 3-point samples at once, a closed-form triad seed and a short
-fixed GN polish per hypothesis, one (H, N) inlier vote, then the masked GN/LM
-refine (solvers/lm.py) and the motion covariance. Every function is batched
+``n_ransac`` 3-point samples at once, a closed-form seed per hypothesis
+(the triad alignment, or the best of Grunert's P3P candidates) and a short
+fixed GN polish, one (H, N) inlier vote, then the masked GN/LM refine
+(solvers/lm.py) and the motion covariance. Every function is batched
 over leading dims, so the sequence scan solves its chunk of steps together.
 
 State convention: ``x = [roll, pitch, yaw, tx, ty, tz]``; previous-frame
@@ -48,7 +49,7 @@ class StereoVOParams(NamedTuple):
     min_spread_area: float = 1000.0  # RANSAC sample triangle area, cpp:63
     min_matches: int = 6  # cpp:41
     min_inliers: int = 6  # cpp:84
-    hyp_solver: str = "3pt"  # "3pt" | "gn" ("p3p" is not ported yet)
+    hyp_solver: str = "3pt"  # "3pt" | "p3p" | "gn"
     ransac_gn_iters: int = 2
 
 
@@ -229,8 +230,8 @@ def stereo_vo_solve(
     n_valid = torch.sum(valid, dim=-1)
 
     if p.ransac:
-        if p.hyp_solver not in ("3pt", "gn"):
-            raise NotImplementedError(f"hyp_solver={p.hyp_solver!r} is not ported yet")
+        if p.hyp_solver not in ("3pt", "p3p", "gn"):
+            raise ValueError(f"unknown hyp_solver {p.hyp_solver!r}")
         if samples is None:
             samples = _sample_hypotheses(key, p.n_ransac, valid)
         samples = samples.to(device=dev, dtype=torch.int64)
@@ -251,6 +252,25 @@ def stereo_vo_solve(
             seed = torch.cat([lie.R_to_euler(Rh.transpose(-1, -2)), th], dim=-1)
             good = ok & torch.all(torch.isfinite(seed), dim=-1)
             seed = torch.where(good[..., None], seed, init_h)
+            hyp_states = _gn_fixed(seed, P, O, W, p, p.ransac_gn_iters)
+        elif p.hyp_solver == "p3p":
+            # Grunert P3P on the previous-frame points and the current-left
+            # bearings: each sample keeps the one of its 4 candidates with
+            # the least reprojection error on its own 3 matches
+            f3 = matches[..., 2, :]
+            rays = torch.stack([(f3[..., 0] - p.intr1.cu) / p.intr1.fu,
+                                (f3[..., 1] - p.intr1.cv) / p.intr1.fv,
+                                torch.ones_like(f3[..., 0])], dim=-1)
+            rays = rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
+            Rs, ts, oks = pnp.p3p_grunert(P, _take(rays, samples, nb))  # (..., H, 4, ...)
+            states = torch.cat([lie.R_to_euler(Rs.transpose(-1, -2)), ts], dim=-1)
+            good = oks & torch.all(torch.isfinite(states), dim=-1)
+            states = torch.where(good[..., None], states, init_h[..., None, :])
+            errs3 = torch.sum(_sq_reproj_error(states, P[..., None, :, :],
+                                               O[..., None, :, :, :], p), dim=-1)
+            pick = torch.argmin(errs3, dim=-1)  # first minimum, as jnp.argmin
+            seed = torch.gather(states, -2, pick[..., None, None].expand(
+                *pick.shape, 1, 6))[..., 0, :]
             hyp_states = _gn_fixed(seed, P, O, W, p, p.ransac_gn_iters)
         else:
             hyp_states = _gn_fixed(init_h, P, O, W, p, max(p.ransac_gn_iters, 12))
@@ -315,3 +335,12 @@ def _motion_matrix(state: torch.Tensor) -> torch.Tensor:
     bottom = const([0.0, 0.0, 0.0, 1.0], state.dtype, state.device).expand(
         *state.shape[:-1], 1, 4)
     return torch.cat([top, bottom], dim=-2)
+
+
+def stereo_vo_batch(matches: torch.Tensor, valid: torch.Tensor, keys: Sequence[torch.Generator],
+                    params: StereoVOParams) -> StereoVOResult:
+    """A batch of independent frame problems (B, N, 4, 2), one generator per
+    problem: ``stereo_vo_solve`` already solves them together."""
+    if len(keys) != matches.shape[0]:
+        raise ValueError(f"{len(keys)} generators for {matches.shape[0]} problems")
+    return stereo_vo_solve(matches, valid, list(keys), params)

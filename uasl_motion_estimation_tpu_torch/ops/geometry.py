@@ -1,14 +1,17 @@
-"""Projective geometry: the subset of ``uasl_motion_estimation_tpu/ops/geometry.py``
-the ported paths need (homogeneous coordinates, pinhole intrinsics,
-projection, rectified-stereo triangulation, relative scale) and its float64
-numpy covariance transport. Points are ``(..., 2|3)`` tensors."""
+"""Projective geometry: port of ``uasl_motion_estimation_tpu/ops/geometry.py``
+(homogeneous coordinates, pinhole intrinsics, projection, rectified-stereo
+triangulation, relative scale, rigid poses with first-order covariance
+propagation) and its float64 numpy covariance transport. Points are
+``(..., 2|3)`` tensors."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from . import lie
 
 
 def to_homogeneous(pts: torch.Tensor) -> torch.Tensor:
@@ -82,6 +85,121 @@ def relative_scale(pts_a: torch.Tensor, pts_b: torch.Tensor,
         return torch.quantile(ratio, 0.5, dim=-1)
     pair = mask & torch.roll(mask, 1, dims=-1)
     return torch.nanquantile(torch.where(pair, ratio, torch.nan), 0.5, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Poses
+# ---------------------------------------------------------------------------
+
+
+class Pose(NamedTuple):
+    """Rigid transform T(x) = R(q) x + t with an optional 6x6 covariance on
+    the [translation(3), rotation(3)] tangent (the reference's pose
+    covariance Jacobians, feature_types.cpp:83-95)."""
+
+    q: torch.Tensor  # (..., 4) quaternion [w, x, y, z]
+    t: torch.Tensor  # (..., 3)
+    cov: torch.Tensor | None = None  # (..., 6, 6) or None
+
+    @property
+    def R(self) -> torch.Tensor:
+        return lie.quat_to_R(self.q)
+
+    def matrix(self) -> torch.Tensor:
+        """4x4 homogeneous transform (CamPose::TrMat, feature_types.cpp:32-42)."""
+        top = torch.cat([self.R, self.t[..., :, None]], dim=-1)
+        bottom = torch.zeros_like(top[..., :1, :])
+        bottom[..., 0, 3] = 1.0
+        return torch.cat([top, bottom], dim=-2)
+
+    def apply(self, pts: torch.Tensor) -> torch.Tensor:
+        """Transform (..., N, 3) euclidean points."""
+        return torch.matmul(pts, self.R.transpose(-1, -2)) + self.t[..., None, :]
+
+    def compose(self, other: "Pose") -> "Pose":
+        """self * other: ``other`` applied first (CamPose::operator*)."""
+        return Pose(q=lie.quat_normalize(lie.quat_mul(self.q, other.q)),
+                    t=lie.quat_rotate(self.q, other.t) + self.t)
+
+    def inverse(self) -> "Pose":
+        """T^-1 (CamPose::inv, feature_types.cpp:61-69)."""
+        qc = lie.quat_conj(self.q)
+        return Pose(q=qc, t=-lie.quat_rotate(qc, self.t))
+
+
+def pose_identity(dtype=torch.float32, device=None) -> Pose:
+    return Pose(q=lie.quat_identity(dtype, device), t=torch.zeros(3, dtype=dtype, device=device))
+
+
+def pose_from_matrix(T: torch.Tensor) -> Pose:
+    return Pose(q=lie.R_to_quat(T[..., :3, :3]), t=T[..., :3, 3])
+
+
+def _perturb(p: Pose, xi: torch.Tensor) -> Pose:
+    """Right perturbation by (..., 6) [dt, dtheta], the tangent used for
+    covariances."""
+    return Pose(q=lie.quat_normalize(lie.quat_mul(p.q, lie.quat_exp(xi[..., 3:6]))),
+                t=p.t + lie.quat_rotate(p.q, xi[..., 0:3]))
+
+
+def _local_delta(out: Pose, res_q: torch.Tensor, res_t: torch.Tensor) -> torch.Tensor:
+    """(..., 6) [dt, dtheta] of (res_q, res_t) in the local tangent of ``out``."""
+    qc = lie.quat_conj(out.q)
+    dtheta = lie.quat_log(lie.quat_mul(qc, res_q))
+    return torch.cat([lie.quat_rotate(qc, res_t - out.t), dtheta], dim=-1)
+
+
+def _tangent_jacobians(f: Callable[..., Pose], *poses: Pose
+                       ) -> tuple[Pose, list[torch.Tensor]]:
+    """Jacobians of the pose-valued f(*poses) with respect to each pose's
+    local tangent, J_i = d log(f(.. p_i exp(xi) ..)) / d xi at xi = 0 in the
+    output's local tangent (the reference's hand-coded getG/getH blocks,
+    feature_types.cpp:83-169, by forward-mode autodiff as ``jax.jacfwd``)."""
+    out = f(*poses)
+
+    def local_delta(xi_all: torch.Tensor) -> torch.Tensor:
+        # differentiated with a leading dim of 1: under torch.func, a
+        # torch.where over 0-d operands can promote its tangent to float64
+        xi = xi_all[None]
+        res = f(*(_perturb(p, xi[:, 6 * i:6 * i + 6]) for i, p in enumerate(poses)))
+        return _local_delta(out, res.q, res.t)[0]
+
+    xi0 = torch.zeros(6 * len(poses), dtype=out.t.dtype, device=out.t.device)
+    J = torch.func.jacfwd(local_delta)(xi0)  # (6, 6 * len(poses))
+    return out, [J[:, 6 * i:6 * i + 6] for i in range(len(poses))]
+
+
+def compose_with_covariance(p1: Pose, p2: Pose) -> Pose:
+    """p1 * p2 with first-order covariance propagation
+    (poseMultiplicationWithCovariance, feature_types.cpp:172-193).
+    Needs p1.cov and p2.cov."""
+    out, (J1, J2) = _tangent_jacobians(lambda a, b: a.compose(b), p1, p2)
+    return Pose(out.q, out.t, J1 @ p1.cov @ J1.T + J2 @ p2.cov @ J2.T)
+
+
+def invert_with_covariance(p: Pose) -> Pose:
+    """Pose inverse with covariance (invertPoseWithCovariance,
+    feature_types.cpp:225-241)."""
+    out, (J,) = _tangent_jacobians(lambda a: a.inverse(), p)
+    return Pose(out.q, out.t, J @ p.cov @ J.T)
+
+
+def scale_pose_with_covariance(p: Pose, scale, scale_var) -> Pose:
+    """Translation scaled by ``scale`` (variance ``scale_var``), covariance
+    propagated through the augmented 7x7 covariance with J = [[s I, 0, t],
+    [0, I, 0]] (ScalePoseWithCovariance, feature_types.cpp:244-251)."""
+    out = Pose(p.q, p.t * scale)
+
+    def local_delta(xi_s: torch.Tensor) -> torch.Tensor:
+        xi = xi_s[None]  # a leading dim of 1, as in _tangent_jacobians
+        pp = _perturb(p, xi[:, :6])
+        return _local_delta(out, pp.q, pp.t * (scale + xi[:, 6:]))[0]
+
+    J = torch.func.jacfwd(local_delta)(torch.zeros(7, dtype=p.t.dtype, device=p.t.device))
+    aug = torch.zeros(7, 7, dtype=p.t.dtype, device=p.t.device)
+    aug[:6, :6] = p.cov
+    aug[6, 6] = scale_var
+    return Pose(out.q, out.t, J @ aug @ J.T)
 
 
 # ---------------------------------------------------------------------------

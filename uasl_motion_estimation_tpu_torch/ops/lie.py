@@ -1,6 +1,7 @@
-"""Rotation algebra: the subset of ``uasl_motion_estimation_tpu/ops/lie.py``
-the ported paths need (Euler angles, their derivatives, skew, so3_exp, and
-so3_log with the quaternion helpers it rests on).
+"""Rotation algebra: port of ``uasl_motion_estimation_tpu/ops/lie.py``
+(Euler angles and their derivatives, skew, quaternions ``[w, x, y, z]``,
+the SO(3) exp/log maps and right Jacobian, and the XYZ/OpenCV frame
+conversions).
 
 Conventions are the reference's: ``(roll, pitch, yaw)`` about (x, y, z) and
 ``R = Rx(roll) @ Ry(pitch) @ Rz(yaw)`` in the row convention of
@@ -10,7 +11,10 @@ over leading dimensions.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..device import const
 
 _EPS = 1e-8
 
@@ -79,10 +83,89 @@ def R_to_euler(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([roll, pitch, yaw], dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# Quaternions ([w, x, y, z])
+# ---------------------------------------------------------------------------
+
+
+def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (Quat::conj, rotation_utils.h)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1 * q2 (q1 applied after q2)."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quat_to_R(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> the standard rotation matrix (Quat::getR3,
+    rotation_utils.h:232-238): ``quat_to_R(euler_to_quat(e)) ==
+    euler_to_R(e).T``."""
+    w, x, y, z = quat_normalize(q).unbind(-1)
+    return _mat([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def euler_to_quat(rpy: torch.Tensor) -> torch.Tensor:
+    """Euler -> quaternion (Euler::getQuat, rotation_utils.cpp:155-165)."""
+    half = rpy * 0.5
+    cr, sr = torch.cos(half[..., 0]), torch.sin(half[..., 0])
+    cp, sp = torch.cos(half[..., 1]), torch.sin(half[..., 1])
+    cy, sy = torch.cos(half[..., 2]), torch.sin(half[..., 2])
+    return torch.stack([
+        cr * cp * cy + sr * sp * sy,
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+    ], dim=-1)
+
+
+def quat_to_euler(q: torch.Tensor) -> torch.Tensor:
+    """Quat::getEuler (rotation_utils.cpp:249-253): euler_to_R is the
+    transpose of the standard matrix."""
+    return R_to_euler(quat_to_R(q).transpose(-1, -2))
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """quat_to_R(q) @ v."""
+    return torch.matmul(quat_to_R(q), v[..., None])[..., 0]
+
+
 def _safe_sqrt(x2: torch.Tensor, small: torch.Tensor) -> torch.Tensor:
     """sqrt with the argument itself replaced by 1 where ``small``, so no
     NaN tangent leaks through a later ``where`` (autodiff-safe at 0)."""
     return torch.sqrt(torch.where(small, torch.ones_like(x2), x2))
+
+
+def _sinc_half(theta2: torch.Tensor) -> torch.Tensor:
+    """sin(t/2)/t with a series below t^2 = 1e-8 (t = sqrt(theta2))."""
+    small = theta2 < _EPS
+    safe = _safe_sqrt(theta2, small)
+    return torch.where(small, 0.5 - theta2 / 48.0, torch.sin(safe * 0.5) / safe)
+
+
+def quat_exp(v: torch.Tensor) -> torch.Tensor:
+    """Rotation vector (..., 3) -> quaternion (exp_map_Quat)."""
+    theta2 = torch.sum(v * v, dim=-1)
+    small = theta2 < _EPS
+    theta = _safe_sqrt(theta2, small)
+    w = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(theta * 0.5))
+    return torch.cat([w[..., None], v * _sinc_half(theta2)[..., None]], dim=-1)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -142,3 +225,49 @@ def so3_exp(v: torch.Tensor) -> torch.Tensor:
     K = skew(v)
     eye = torch.eye(3, dtype=v.dtype, device=v.device).expand(K.shape)
     return eye + A[..., None, None] * K + B[..., None, None] * (K @ K)
+
+
+def so3_right_jacobian(v: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian J_r(v) of SO(3): exp(v + dv) ~ exp(v) exp(J_r dv)."""
+    theta2 = torch.sum(v * v, dim=-1)
+    small = theta2 < _EPS
+    safe_t = _safe_sqrt(theta2, small)
+    A = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(safe_t)) / (safe_t * safe_t))
+    B = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (safe_t - torch.sin(safe_t)) / safe_t ** 3)
+    K = skew(v)
+    eye = torch.eye(3, dtype=v.dtype, device=v.device).expand(K.shape)
+    return eye - A[..., None, None] * K + B[..., None, None] * (K @ K)
+
+
+# ---------------------------------------------------------------------------
+# Reference-frame conversion (rotation_utils.h:19, rotation_utils.cpp:321-354)
+# ---------------------------------------------------------------------------
+
+# TREF maps the XYZ convention (x forward, y left, z up) to the OpenCV camera
+# convention (x right, y down, z forward)
+TREF = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+
+
+def _tref(like: torch.Tensor) -> torch.Tensor:
+    return const(TREF.tolist(), like.dtype, like.device)
+
+
+def xyz_to_opencv(v: torch.Tensor) -> torch.Tensor:
+    """A 3-vector (or rpy triple) from XYZ to OpenCV axes (convertToOpenCV,
+    rotation_utils.cpp:321-326, 347-350)."""
+    return v @ _tref(v).T
+
+
+def opencv_to_xyz(v: torch.Tensor) -> torch.Tensor:
+    """Inverse of xyz_to_opencv (convertToXYZ, rotation_utils.cpp:329-333)."""
+    return v @ _tref(v)
+
+
+def quat_xyz_to_opencv(q: torch.Tensor) -> torch.Tensor:
+    """q -> q_TREF * q (convertToOpenCV for Quat, rotation_utils.cpp:336-340)."""
+    return quat_mul(R_to_quat(_tref(q)), q)
+
+
+def quat_opencv_to_xyz(q: torch.Tensor) -> torch.Tensor:
+    """q -> conj(q_TREF) * q (convertToXYZ for Quat, rotation_utils.cpp:342-345)."""
+    return quat_mul(quat_conj(R_to_quat(_tref(q))), q)
