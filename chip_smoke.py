@@ -81,7 +81,15 @@
      staged stereo with ``hyp_solver="p3p"``, seeds 0-2 (all steps, median
      ATE within 1.5x JAX's); the staged cross-modal session with the
      5-point solver, seed 0 (JAX's steps less one, median scale error
-     within 1.5x JAX's).
+     within 1.5x JAX's);
+   - the parallel layer (``parallel/``): every sharded entry point in 4
+     gloo ranks that share the card (``run_ranks``; the kernels built here
+     first), each rank's front-end under ``GatherShim(check=True)``, held
+     to JAX's gates against single-process twins (``parallel_phase``); then
+     in one NCCL rank in this process, within 1e-5 of the same computation
+     in one process; then ``examples/run_synthetic_torch.run`` at its
+     default size (ATE < 0.1 m). Every wall time of the 4 ranks is of ranks
+     sharing one card, not a scaling figure.
 6. Times each path's frames/s (median of 3 after the measured run; the
    streaming engines end to end, with their in-run upload figures; the
    mono engines with K1's device time per run), counts its stream syncs (the stereo and cross-modal figures beside those from
@@ -100,8 +108,9 @@
    both must equal K1 exactly), and against the bytes those anchors need:
    the distinct image pixels their tiles cover, the anchors and the tiles.
 
-Prints the paths' JSON line (frames/s, accuracy, syncs, uploads), the
-kernels' JSON line and, last, ``{"ok": true, "device": {...}}``.
+Prints each phase's seconds, the paths' JSON line (frames/s, accuracy,
+syncs, uploads), the kernels' JSON line and, last, ``{"ok": true,
+"device": {...}}``.
 Any failed phase ends the run with a non-zero exit code.
 """
 
@@ -113,6 +122,7 @@ import sys
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -258,13 +268,40 @@ P3P_SCENES = 200
 # (tools/jax_cross_modal_reference.py --seeds 0 --solver 5point)
 JAX_CM_5POINT = {"n_success": 39, "scale_err_median": 0.00929018855094874,
                  "ate_m": 0.20533835538727596}
+# The parallel phase (parallel/): 4 gloo ranks sharing the card, then one
+# NCCL rank in this process. Sharded VO on bench.py's world with 41 frames
+# (40 pairs, 10 a rank); the sharded unified engine on its first 40 frames
+# (10 windows padded to 12, 3 a rank); window-parallel BA on 8 windows of 5
+# frames overlapping by n_fixed = 2, 500 points, 2 windows a rank, 8 sweeps;
+# stitching of 4 segments of 12 frames overlapping by 3 (the first 39
+# poses). The gates are JAX's own (__graft_entry__.py, tests/test_parallel*.py)
+PAR_RANKS = 4
+PAR_PAIRS = 40
+BA_WINDOWS, BA_WINDOW, BA_FIXED, BA_POINTS, BA_SWEEPS = 8, 5, 2, 500, 8
+STITCH_SEGMENTS, STITCH_OVERLAP = 4, 3
+PAR_GATES = {"vo_pose_m": 1e-3, "vo_ate_m": 0.1, "chain": 1e-4, "stitch": 1e-3, "halo": 5e-4,
+             "ba_truth": 5e-3, "vo_motions": 1e-3, "refined_motions": 1e-2, "traj_ba_m": 1e-3}
+NCCL_TOL = 1e-5  # one NCCL rank against the same computation in one process
+PAR_UNIFIED_WINDOWS = 10  # unified_window_starts(40, 5, 4)
+# K1's batches in the ranks: the sharded VO's 10 pairs (40 on the NCCL rank)
+# and the unified engine's group of 3 windows (10 on the NCCL rank)
+PAR_K1_BATCHES = tuple(sorted({PAR_PAIRS // PAR_RANKS, -(-PAR_UNIFIED_WINDOWS // PAR_RANKS),
+                               PAR_PAIRS, PAR_UNIFIED_WINDOWS}))
+# collectives a rank issues in parallel_rank, by world size: an all_gather in
+# each of the chain, the VO's chain and the unified engine, each run twice;
+# a send/receive per BA sweep, twice (none on one rank)
+RANK_COLLECTIVES = {n: {"all_gather": 6, "p2p": 2 * BA_SWEEPS if n > 1 else 0}
+                    for n in (1, PAR_RANKS)}
+EXAMPLE_FRAMES = 20  # examples/run_synthetic_torch.py's default size
+EXAMPLE_ATE_M = 0.1
 # K1's cases on the paths, each (batches, images, tiles, features) held to
 # its plain version by check_gather: the stereo, cross-modal and integrated
 # paths; the mono engine; the per-frame loops (run_cross_modal and the
-# latency mode: batch 1, every path shape)
+# latency mode: batch 1, every path shape); the parallel phase's ranks
 K1_HELD = [(K1_PATH_BATCHES, LEVELS, list(SHAPES), N_FEATURES),
            (MONO_BATCHES, MONO_LEVELS, KLT_SHAPES, MONO_FEATURES),
-           ((1,), LEVELS, list(SHAPES), N_FEATURES)]
+           ((1,), LEVELS, list(SHAPES), N_FEATURES),
+           (PAR_K1_BATCHES, LEVELS, list(SHAPES), N_FEATURES)]
 
 
 def held_cases() -> set:
@@ -1738,6 +1775,420 @@ def cross_modal_per_frame(dev, rig, frames, rights_cm, gt, card) -> dict:
     return out
 
 
+def stereo_config(rig):
+    from uasl_motion_estimation_tpu_torch.models.pipeline import default_config
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+
+    return default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), rig.baseline)
+
+
+def ba_world(rig) -> dict:
+    """Window-parallel BA's problem at KITTI's intrinsics and image size
+    (``synthetic.stereo_ba_windows``, tests/test_parallel_ba.py's recipe):
+    ``BA_POINTS`` points, 0.1 px of noise, ``BA_WINDOWS`` windows of
+    ``BA_WINDOW`` frames overlapping by ``BA_FIXED``; every camera but
+    window 0's head moved by 0.01 and every point by 0.3. Returns the
+    problem's arrays and the true cameras."""
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(1)
+    n_cams = (BA_WINDOW - BA_FIXED) * (BA_WINDOWS - 1) + BA_WINDOW
+    _, _, (wc, pts, obs, mask) = synthetic.stereo_ba_windows(
+        rng, rig, rig.baseline, n_cams, BA_POINTS, BA_WINDOW, BA_FIXED, 0.1,
+        image_shape=(rig.height, rig.width))
+    wc_p, wp = synthetic.perturb_windows(wc, pts, rng, BA_FIXED)
+    return {"cam": wc_p, "pts": wp, "obs": obs, "mask": mask, "truth": wc}
+
+
+def ba_config(rig):
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.solvers.ba import BAConfig
+
+    return BAConfig(intr=Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), baseline=rig.baseline,
+                    n_fixed=BA_FIXED)
+
+
+def boundary_halos(cams: np.ndarray) -> list[float]:
+    """Largest gap between each window's tail and its right neighbour's
+    head, by boundary, for (n_windows, window, 6) cameras."""
+    return [float(np.abs(cams[i, -BA_FIXED:] - cams[i + 1, :BA_FIXED]).max())
+            for i in range(len(cams) - 1)]
+
+
+def k1_profiled(fn):
+    """(``fn()``, the device time in ms of each K1 launch ``torch.profiler``
+    saw in that run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [1e-3 * e.time_range.elapsed_us() for e in prof.events() if K1_KERNEL in e.name]
+
+
+def parallel_rank(mesh, world: str, cfg, bcfg) -> dict:
+    """One rank of the parallel phase (a spawned gloo rank, or the NCCL rank
+    in the main process): every sharded entry point on this rank's shard of
+    the worlds in ``world`` (memory-mapped ``.npy`` files), with the stereo
+    configuration ``cfg`` and the BA configuration ``bcfg``. The unified
+    engine takes the world's frames but the last (the VO takes them all).
+    The sharded VO and unified engines run twice: first under
+    ``GatherShim(check=True)`` and the profiler (K1's launches counted from
+    0, every call held to the plain version, K1's device time), then timed
+    by the port's ``StageTimer``; BA and the chain run twice, the second
+    timed. Returns numpy results, the timer's totals, K1's figures and the
+    collectives issued."""
+    from uasl_motion_estimation_tpu_torch import parallel
+    from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
+    from uasl_motion_estimation_tpu_torch.models.smoother import SmootherConfig
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+    from uasl_motion_estimation_tpu_torch.parallel.ba_windows import (shard_windows,
+                                                                      window_parallel_ba)
+    from uasl_motion_estimation_tpu_torch.solvers.ba import BAProblem
+    from uasl_motion_estimation_tpu_torch.utils.profiling import StageTimer
+
+    ucfg = SmootherConfig(pipe=cfg)
+    sampler = make_sampler(0, cfg.vo.n_ransac)
+    ls = np.load(f"{world}/ls.npy", mmap_mode="r")
+    rs = np.load(f"{world}/rs.npy", mmap_mode="r")
+    timer = StageTimer()
+    out: dict = {"rank": mesh.rank, "device": str(mesh.device), "k1": {}}
+
+    def vo():
+        pairs = [parallel.shard_frames(x, mesh) for x in (ls[:-1], rs[:-1], ls[1:], rs[1:])]
+        return parallel.sharded_sequence_vo(*pairs, sampler, cfg, mesh)
+
+    def unified():
+        return parallel.sharded_unified_scan(ls[:-1], rs[:-1], sampler, ucfg, mesh)
+
+    for name, fn in (("sharded_sequence_vo", vo), ("sharded_unified_scan", unified)):
+        kg.GATHER.launches = 0
+        with GatherShim(check=True) as shim:
+            res, k1_ms = k1_profiled(fn)
+        out["k1"][name] = {"launches": kg.GATHER.launches, "held": shim.checked,
+                           "calls": sum(shim.counts.values()), "batches": sorted(shim.batches),
+                           "ms": sum(k1_ms), "ms_launches": len(k1_ms)}
+        out[name] = (tuple(x.cpu().numpy() for x in res) if name == "sharded_sequence_vo"
+                     else res._asdict())
+        with timer(name):
+            fn()
+
+    d = np.load(f"{world}/ba.npz")
+    problem = shard_windows(BAProblem(d["cam"], d["pts"], d["obs"], d["mask"]), mesh)
+    out["window_parallel_ba"] = window_parallel_ba(problem, bcfg, mesh, BA_SWEEPS).cam.cpu().numpy()
+    with timer("window_parallel_ba"):
+        window_parallel_ba(problem, bcfg, mesh, BA_SWEEPS)
+    motions = parallel.shard_frames(np.load(f"{world}/motions.npy"), mesh)
+    out["sharded_chain_motions"] = parallel.sharded_chain_motions(motions, mesh).cpu().numpy()
+    with timer("sharded_chain_motions"):
+        parallel.sharded_chain_motions(motions, mesh)
+    out["seconds"] = dict(timer.totals)
+    out["collectives"] = dict(mesh.counts)
+    return out
+
+
+def pose_distance_m(a, b) -> float:
+    """Largest distance between the positions of two (N, 4, 4) pose stacks."""
+    return float(np.linalg.norm(np.asarray(a)[:, :3, 3] - np.asarray(b)[:, :3, 3], axis=-1).max())
+
+
+def check_rank_k1(tag: str, outs: list[dict]) -> dict:
+    """Every rank's K1: the launches each entry point made, all held to the
+    plain version by the shim, at batches check_gather holds."""
+    per_path = {"sharded_sequence_vo": K1_PER_CHUNK, "sharded_unified_scan": K1_PER_GROUP}
+    for o in outs:
+        for name, want in per_path.items():
+            k = o["k1"][name]
+            if not k["launches"] == k["calls"] == k["held"] == want:
+                raise AssertionError(f"{tag} rank {o['rank']} {name}: K1 {k}, want {want} "
+                                     f"launches, every one held to plain")
+            if not {tuple(b) for b in k["batches"]} <= held_cases():
+                raise AssertionError(f"{tag} rank {o['rank']} {name}: K1 cases check_gather "
+                                     f"never held: {k['batches']}")
+    return {name: {"launches": [o["k1"][name]["launches"] for o in outs],
+                   "held": [o["k1"][name]["held"] for o in outs],
+                   "ms": [o["k1"][name]["ms"] for o in outs],
+                   "batches": sorted({tuple(b) for o in outs for b in o["k1"][name]["batches"]})}
+            for name in per_path}
+
+
+def parallel_phase(dev, rig, frames, card) -> dict:
+    """The parallel layer on the card, from ``frames`` (bench.py's 40-frame
+    world), against single-process twins.
+
+    (a) 4 gloo ranks sharing the one card (``run_ranks``; kernels built in
+    this process first): ``sharded_sequence_vo`` on 41 frames, every pose
+    within 1e-3 m of the staged engine's (chunk 13, the same sampler, chained
+    on the host in float64), ATE < 0.1 m; ``sharded_chain_motions`` of the
+    staged engine's motions within 1e-4 of the serial float64 chain;
+    ``stitch_segments`` of the sharded poses (4 segments of 12 overlapping
+    by 3), uniform and covariance-weighted, within 1e-3 of the chain they
+    came from; ``window_parallel_ba``: shared frames within 5e-4, cameras
+    within 5e-3 of the truth, and the halo by boundary beside the one-rank
+    twin's and beside how far batches of 2 move one solve from a batch of 8;
+    ``sharded_unified_scan`` against
+    ``unified_system_scan`` (5 windows a group): VO motions within 1e-3,
+    refined within 1e-2, composed positions within 1e-3 m, every window
+    converged. Every K1 call in the ranks is held to its plain version.
+
+    (b) One NCCL rank in this process: each entry point within 1e-5 of the
+    same computation in one process (the VO's 40 pairs as one batch chained
+    by ``chain_motions``; the chain; ``window_parallel_ba`` on a one-rank
+    gloo mesh, every window in one batch; the unified
+    scan with its 10 windows as one group), with its collectives counted
+    and its stream syncs.
+
+    Then ``examples/run_synthetic_torch.run`` at its default size: ATE <
+    0.1 m. Stages are timed by the port's ``StageTimer``; the 4-rank wall
+    times share one card and are no scaling figure."""
+    import tempfile
+
+    from uasl_motion_estimation_tpu_torch.utils.profiling import StageTimer
+
+    shared = f"{PAR_RANKS} ranks sharing one card"
+    timer = StageTimer()
+    out: dict = {"card": card, "label": f"wall times of {shared}: not a scaling figure"}
+    world_dir = tempfile.TemporaryDirectory(prefix="parallel-")
+    try:
+        return _parallel_phase(dev, rig, frames, card, world_dir.name, timer, shared, out)
+    finally:
+        world_dir.cleanup()
+
+
+def _parallel_phase(dev, rig, frames, card, world, timer, shared, out) -> dict:
+    """``parallel_phase``'s body, with its worlds written to ``world``."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from uasl_motion_estimation_tpu_torch import parallel
+    from uasl_motion_estimation_tpu_torch.models import pipeline as tp
+    from uasl_motion_estimation_tpu_torch.models.smoother import (
+        SmootherConfig, UnifiedOutput, compose_unified, unified_system_scan)
+    from uasl_motion_estimation_tpu_torch.parallel import launch, stitching
+    from uasl_motion_estimation_tpu_torch.parallel.ba_windows import window_parallel_ba
+    from uasl_motion_estimation_tpu_torch.solvers.ba import BAProblem, ba_solve
+    from uasl_motion_estimation_tpu_torch.utils import metrics, synthetic
+
+    with timer("render frame 40, write the worlds"):
+        seq = synthetic.SyntheticStereoSequence(n_frames=PAR_PAIRS + 1, rig=rig, seed=0)
+        all_frames = list(frames[:PAR_PAIRS]) + [seq.frame(PAR_PAIRS)]
+        ls = np.clip(np.stack([f[0] for f in all_frames]), 0, 255).astype(np.uint8)
+        rs = np.clip(np.stack([f[1] for f in all_frames]), 0, 255).astype(np.uint8)
+        np.save(f"{world}/ls.npy", ls)
+        np.save(f"{world}/rs.npy", rs)
+        ba = ba_world(rig)
+        np.savez(f"{world}/ba.npz", **{k: ba[k] for k in ("cam", "pts", "obs", "mask")})
+    gt = seq.gt_positions()
+    cfg = stereo_config(rig)
+    ucfg = SmootherConfig(pipe=cfg)
+    bcfg = ba_config(rig)
+    sampler = tp.make_sampler(0, cfg.vo.n_ransac)
+    ls_d, rs_d = torch.from_numpy(ls).to(dev), torch.from_numpy(rs).to(dev)
+    ba_prob = BAProblem(*(torch.from_numpy(ba[k]).to(dev) for k in ("cam", "pts", "obs", "mask")))
+
+    # the single-process twins, each run once for its result and once timed;
+    # BA's is window_parallel_ba on a one-rank mesh: all 8 windows in one batch
+    with tempfile.TemporaryDirectory(prefix="twin-") as d, \
+            launch.process_group("gloo", 1, 0, f"{d}/store"):
+        mesh1 = launch.make_mesh(1, device=dev)
+        twins = {
+            "sharded_sequence_vo": lambda: tp._vo_scan_packed(ls_d, rs_d, 0, sampler, cfg,
+                                                              CHUNK).cpu().numpy(),
+            "sharded_unified_scan": lambda: unified_system_scan(
+                ls_d[:-1], rs_d[:-1], sampler, ucfg, wchunk=UNIFIED_WCHUNK),
+            "window_parallel_ba": lambda: window_parallel_ba(ba_prob, bcfg, mesh1,
+                                                             BA_SWEEPS).cam.cpu().numpy(),
+        }
+        twin = {}
+        for name, fn in twins.items():
+            twin[name] = fn()
+            with timer(f"twin of {name}"):
+                fn()
+    # how far batching alone moves one solve: the 8 windows in batches of 2
+    # (a rank's batch) against one batch of 8
+    one = ba_solve(ba_prob, bcfg).cam
+    per = BA_WINDOWS // PAR_RANKS
+    by_rank = torch.cat([ba_solve(BAProblem(*(x[i:i + per] for x in ba_prob)), bcfg).cam
+                         for i in range(0, BA_WINDOWS, per)])
+    ba_batch = float((one - by_rank).abs().max())
+    packed = twin["sharded_sequence_vo"]
+    ok = packed[:, 16] > 0.5
+    motions = np.where(ok[:, None, None], packed[:, :16].reshape(-1, 4, 4), np.eye(4))
+    np.save(f"{world}/motions.npy", motions.astype(np.float32))
+    serial = [np.eye(4)]
+    for m in motions.astype(np.float64):
+        serial.append(serial[-1] @ np.linalg.inv(m))
+    serial = np.stack(serial)  # (41, 4, 4): frame 0 and the 40 poses
+    with timer("twin of sharded_chain_motions"):
+        parallel.chain_motions(torch.from_numpy(motions.astype(np.float32)).to(dev))
+
+    # (a) 4 gloo ranks on the one card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with timer(f"run_ranks: {shared} over gloo, spawn included"):
+        ranks = launch.run_ranks(parallel_rank, PAR_RANKS, "gloo", None, world, cfg, bcfg,
+                                 timeout=900)
+    if [r["device"] for r in ranks] != [str(dev)] * PAR_RANKS:
+        raise AssertionError(f"the ranks ran on {[r['device'] for r in ranks]}")
+    k1 = check_rank_k1("gloo", ranks)
+    poses, success, n_inl, cov = (np.concatenate([r["sharded_sequence_vo"][k] for r in ranks])
+                                  for k in range(4))
+    chain = np.concatenate([np.eye(4, dtype=np.float32)[None], poses])
+    vo_dev = pose_distance_m(chain, serial)
+    vo_ate = float(metrics.ate_rmse(chain[:, :3, 3], gt))
+    chain_err = float(np.abs(np.concatenate([r["sharded_chain_motions"] for r in ranks])
+                             - serial[1:]).max())
+    ba_cams = np.concatenate([r["window_parallel_ba"] for r in ranks])
+    halos = {"ranks": boundary_halos(ba_cams),
+             "twin": boundary_halos(twin["window_parallel_ba"])}
+    halo = max(halos["ranks"])
+    ba_truth = float(np.abs(ba_cams - ba["truth"]).max())
+    ba_twin = float(np.abs(ba_cams - twin["window_parallel_ba"]).max())
+    uni = UnifiedOutput(**ranks[0]["sharded_unified_scan"])
+    for r in ranks[1:]:
+        for key, v in r["sharded_unified_scan"].items():
+            if not np.array_equal(v, getattr(uni, key)):
+                raise AssertionError(f"rank {r['rank']} gathered another {key} than rank 0")
+    uni_twin = twin["sharded_unified_scan"]
+    if uni.vo_motions.shape != uni_twin.vo_motions.shape:
+        raise AssertionError(f"sharded unified: {uni.vo_motions.shape} windows, the twin "
+                             f"{uni_twin.vo_motions.shape}")
+    uni_vo = float(np.abs(uni.vo_motions - uni_twin.vo_motions).max())
+    uni_ref = float(np.abs(uni.refined_motions - uni_twin.refined_motions).max())
+    res_s, res_t = (compose_unified(u, PAR_PAIRS, ucfg) for u in (uni, uni_twin))
+    uni_traj = pose_distance_m(res_s.traj_ba, res_t.traj_ba)
+
+    # covariance-weighted stitching of the sharded chain, on the card
+    seg_len = (PAR_PAIRS - 1 - STITCH_OVERLAP) // STITCH_SEGMENTS + STITCH_OVERLAP
+    step = seg_len - STITCH_OVERLAP
+    n_st = STITCH_SEGMENTS * step + STITCH_OVERLAP
+    chain_d = torch.from_numpy(chain).to(dev)
+    segs = torch.stack([torch.linalg.inv(chain_d[s * step]) @ chain_d[s * step:s * step + seg_len]
+                        for s in range(STITCH_SEGMENTS)])
+    chain64 = chain.astype(np.float64)
+    seg_motions = np.stack([np.linalg.inv(np.linalg.inv(chain64[i]) @ chain64[i + 1])
+                            for i in range(PAR_PAIRS)])
+    seg_cov = [stitching.chain_covariances_np(seg_motions[s * step:s * step + seg_len - 1],
+                                              cov[s * step:s * step + seg_len - 1])
+               for s in range(STITCH_SEGMENTS)]
+    weights = np.stack([stitching.overlap_weights_np(seg_cov[s][seg_len - STITCH_OVERLAP:],
+                                                     seg_cov[s + 1][:STITCH_OVERLAP])
+                        for s in range(STITCH_SEGMENTS - 1)])
+    stitch = {}
+    for kind, w in (("uniform", None), ("weighted", torch.from_numpy(weights).float().to(dev))):
+        with timer(f"stitch_segments ({kind})"):
+            st = stitching.stitch_segments(segs, STITCH_OVERLAP, w).cpu().numpy()
+        stitch[kind] = float(np.abs(st - chain[:n_st]).max())
+    gates = {"vo_pose_m": vo_dev, "vo_ate_m": vo_ate, "chain": chain_err,
+             "stitch": max(stitch.values()), "halo": halo, "ba_truth": ba_truth,
+             "vo_motions": uni_vo, "refined_motions": uni_ref, "traj_ba_m": uni_traj}
+    seconds = {name: [r["seconds"][name] for r in ranks] for name in ranks[0]["seconds"]}
+    out["gloo"] = {"gates": gates, "limits": PAR_GATES, "n_success": int(success.sum()),
+                   "stitch": stitch, "ba_vs_twin": ba_twin, "ba_halos": halos,
+                   "ba_batch2_vs_batch8": ba_batch, "k1": k1,
+                   "converged": int(res_s.ba_converged.sum()), "seconds_by_rank": seconds,
+                   "collectives": ranks[0]["collectives"]}
+    print(f"parallel, {shared} over gloo: sharded_sequence_vo {int(success.sum())}/{PAR_PAIRS} "
+          f"pairs solved (inliers min {int(n_inl.min())}), poses vs the staged engine "
+          f"{vo_dev:.3g} m (gate 1e-3), ATE {vo_ate:.5f} m (gate 0.1); sharded_chain_motions "
+          f"vs serial float64 {chain_err:.3g} (gate 1e-4); stitch_segments vs the chain: "
+          f"uniform {stitch['uniform']:.3g}, weighted {stitch['weighted']:.3g} (gate 1e-3; "
+          f"weights {np.array2string(weights, precision=3)}); window_parallel_ba halo "
+          f"{halo:.3g} (gate 5e-4), vs truth {ba_truth:.3g} (gate 5e-3), vs the one-batch twin "
+          f"{ba_twin:.3g}; sharded_unified_scan vs unified_system_scan: VO motions "
+          f"{uni_vo:.3g} (gate 1e-3), refined {uni_ref:.3g} (gate 1e-2), composed positions "
+          f"{uni_traj:.3g} m (gate 1e-3), converged {int(res_s.ba_converged.sum())}/"
+          f"{len(res_s.ba_converged)}; collectives per rank {ranks[0]['collectives']}", flush=True)
+    print(f"parallel, {shared}: window_parallel_ba halo by boundary, 4 ranks "
+          f"{[float(f'{h:.3g}') for h in halos['ranks']]} (boundaries 1, 3, 5 cross ranks), "
+          f"the one-batch twin {[float(f'{h:.3g}') for h in halos['twin']]}; one solve of the "
+          f"start, batches of {per} against one batch of {BA_WINDOWS}: {ba_batch:.3g}", flush=True)
+    for name, secs in seconds.items():
+        twin_s = timer.totals.get(f"twin of {name}")
+        print(f"parallel, {shared}: {name} wall {np.round(secs, 4).tolist()} s by rank, the "
+              f"single-process twin {twin_s:.4f} s; card {card}")
+    print(f"parallel, {shared}: K1 launches by rank {k1['sharded_sequence_vo']['launches']} "
+          f"(VO) and {k1['sharded_unified_scan']['launches']} (unified), every call equal to "
+          f"plain; K1 device ms by rank {k1['sharded_sequence_vo']['ms']} and "
+          f"{k1['sharded_unified_scan']['ms']} (torch.profiler); batches "
+          f"{k1['sharded_sequence_vo']['batches'] + k1['sharded_unified_scan']['batches']}")
+    failed = {k: v for k, v in gates.items() if not v < PAR_GATES[k]}
+    if any(r["collectives"] != RANK_COLLECTIVES[PAR_RANKS] for r in ranks):
+        failed["collectives"] = [r["collectives"] for r in ranks]
+    if failed or res_s.ba_converged.sum() != len(res_s.ba_converged):
+        raise AssertionError(f"parallel phase, gloo ranks: gates failed {failed} "
+                             f"(limits {PAR_GATES}), converged {res_s.ba_converged}")
+
+    # (b) one NCCL rank in this process
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory(prefix="nccl-") as d, \
+            launch.process_group("nccl", 1, 0, f"{d}/store"):
+        mesh = launch.make_mesh(1)
+        with timer("one NCCL rank: every entry point, twice"):
+            nccl = parallel_rank(mesh, world, cfg, bcfg)
+        counts = dict(mesh.counts)
+        lsn, rsn = (np.load(f"{world}/{x}.npy", mmap_mode="r") for x in ("ls", "rs"))
+        nccl_syncs = {
+            "sharded_sequence_vo": count_syncs(lambda: parallel.sharded_sequence_vo(
+                *(parallel.shard_frames(x, mesh) for x in (lsn[:-1], rsn[:-1], lsn[1:], rsn[1:])),
+                sampler, cfg, mesh)),
+            "sharded_unified_scan": count_syncs(lambda: parallel.sharded_unified_scan(
+                lsn[:-1], rsn[:-1], sampler, ucfg, mesh)),
+        }
+    k1_nccl = check_rank_k1("nccl", [nccl])
+    out_vo = tp._step(*(x.float() for x in (ls_d[:-1], rs_d[:-1], ls_d[1:], rs_d[1:])),
+                      list(range(PAR_PAIRS)), sampler, cfg)
+    eye = torch.eye(4, device=dev)
+    one_batch = parallel.chain_motions(torch.where(out_vo.success[:, None, None], out_vo.motion,
+                                                   eye)).cpu().numpy()
+    uni1 = unified_system_scan(ls_d[:-1], rs_d[:-1], sampler, ucfg,
+                               wchunk=PAR_UNIFIED_WINDOWS)
+    uni_n = UnifiedOutput(**nccl["sharded_unified_scan"])
+    chain1 = parallel.chain_motions(torch.from_numpy(motions.astype(np.float32)).to(dev))
+    nccl_err = {
+        "sharded_sequence_vo": float(np.abs(nccl["sharded_sequence_vo"][0] - one_batch).max()),
+        "sharded_chain_motions": float(np.abs(nccl["sharded_chain_motions"]
+                                              - chain1.cpu().numpy()).max()),
+        "window_parallel_ba": float(np.abs(nccl["window_parallel_ba"]
+                                           - twin["window_parallel_ba"]).max()),
+        "sharded_unified_scan": max(float(np.abs(getattr(uni_n, k) - getattr(uni1, k)).max())
+                                    for k in ("vo_motions", "refined_motions")),
+    }
+    out["nccl"] = {"max_abs_err": nccl_err, "tolerance": NCCL_TOL, "collectives": counts,
+                   "syncs": nccl_syncs, "k1": k1_nccl, "seconds": nccl["seconds"]}
+    print(f"parallel, one NCCL rank: against the same computation in one process "
+          f"{ {k: float(f'{v:.3g}') for k, v in nccl_err.items()} } (tolerance {NCCL_TOL}); "
+          f"NCCL collectives issued {counts}; stream syncs {nccl_syncs}; K1 launches "
+          f"{k1_nccl['sharded_sequence_vo']['launches'] + k1_nccl['sharded_unified_scan']['launches']}"
+          f", every call equal to plain; wall s "
+          f"{ {k: round(v, 4) for k, v in nccl['seconds'].items()} }; card {card}", flush=True)
+    if any(not v <= NCCL_TOL for v in nccl_err.values()) or counts != RANK_COLLECTIVES[1] \
+            or not np.array_equal(nccl["sharded_sequence_vo"][1], out_vo.success.cpu().numpy()):
+        raise AssertionError(f"parallel phase, NCCL rank: {nccl_err}, collectives {counts}")
+    out["launches"] = {"gloo_ranks": sum(sum(v["launches"]) for v in k1.values()),
+                       "nccl_rank": sum(sum(v["launches"]) for v in k1_nccl.values())}
+
+    # the port's synthetic example, on the card
+    spec = importlib.util.spec_from_file_location(
+        "run_synthetic_torch", Path(__file__).resolve().parent / "examples" / "run_synthetic_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with tempfile.TemporaryDirectory(prefix="example-") as d, \
+            timer(f"examples/run_synthetic_torch.run({EXAMPLE_FRAMES})"):
+        ex = example.run(EXAMPLE_FRAMES, d, dev)
+    out["example"] = {"frames": EXAMPLE_FRAMES, "ate_m": ex["ate_m"], "rpe_t_m": ex["rpe_t_m"]}
+    print(f"examples/run_synthetic_torch.run({EXAMPLE_FRAMES}) on the card: ATE "
+          f"{ex['ate_m']:.5f} m over {ex['path_m']:.1f} m (gate {EXAMPLE_ATE_M}), RPE "
+          f"{100 * ex['rpe_t_m']:.2f} cm/frame", flush=True)
+    if not ex["ate_m"] < EXAMPLE_ATE_M:
+        raise AssertionError(f"the synthetic example's ATE {ex['ate_m']} m")
+    out["stage_seconds"] = dict(timer.totals)
+    print(f"parallel phase stages (the port's StageTimer, synchronised; {shared} in the "
+          f"run_ranks stage); card {card}:\n{timer.report()}", flush=True)
+    return out
+
+
 def timed_runs(run, n=3) -> list[float]:
     times = []
     for _ in range(n):
@@ -1761,6 +2212,8 @@ def main() -> int:
     from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
     from uasl_motion_estimation_tpu_torch.utils import metrics, synthetic
 
+    t_start = time.perf_counter()
+    phase_s: dict = {}
     card = card_line()
     print(card, flush=True)
     print(f"toolchain: {toolchain()}; python {sys.version.split()[0]}")
@@ -1911,30 +2364,45 @@ def main() -> int:
           f"({SYNCS_BEFORE['cross_modal']} before the constants were cached); card {card}",
           flush=True)
 
+    phase_s["kernel checks, small worlds, stereo and cross-modal"] = time.perf_counter() - t_start
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return result
+
     # --- integrated VO+BA engine, then the streaming engines ---
-    integ = integrated_path(dev, rig, frames, gt, ls, rs, card)
-    streams = streaming_paths(dev, rig, frames, pipe, traj, integ.pop("result"), card)
+    integ = phase("integrated", integrated_path, dev, rig, frames, gt, ls, rs, card)
+    streams = phase("streaming", streaming_paths, dev, rig, frames, pipe, traj,
+                    integ.pop("result"), card)
 
     # --- stereo with the top-k detector, the per-frame cross-modal loop, and
     # the monocular engine ---
-    topk = topk_stereo(dev, rig, ls, rs, gt, card)
+    topk = phase("stereo_topk", topk_stereo, dev, rig, ls, rs, gt, card)
     rights_u8 = list(np.clip(rs_cm, 0, 255).astype(np.uint8))
-    cm_frame = cross_modal_per_frame(dev, rig, frames, rights_u8, gt, card)
-    mono = mono_path(dev, card)
+    cm_frame = phase("cross_modal_per_frame", cross_modal_per_frame, dev, rig, frames, rights_u8,
+                     gt, card)
+    mono = phase("mono", mono_path, dev, card)
 
     # --- the latency mode, its parallax gate and checkpoint, P3P, and the
     # cross-modal session with the 5-point solver ---
-    latency = latency_mode(dev, rig, frames, gt, card)
-    parallax = parallax_gate(dev, card)
-    ckpt = checkpoint_resume(dev, rig, frames, card)
-    p3p = p3p_phase(dev, rig, ls, rs, gt, card)
-    cm5 = cross_modal_fivepoint(dev, rig, staged, gt, card)
+    latency = phase("latency", latency_mode, dev, rig, frames, gt, card)
+    parallax = phase("parallax_gate", parallax_gate, dev, card)
+    ckpt = phase("checkpoint", checkpoint_resume, dev, rig, frames, card)
+    p3p = phase("p3p", p3p_phase, dev, rig, ls, rs, gt, card)
+    cm5 = phase("cross_modal_5point", cross_modal_fivepoint, dev, rig, staged, gt, card)
+
+    # --- the parallel layer: 4 gloo ranks sharing the card, one NCCL rank,
+    # and the synthetic example ---
+    par = phase("parallel", parallel_phase, dev, rig, frames, card)
     print(json.dumps({"paths": {
         "stereo": {"syncs": stereo_syncs, "syncs_before": SYNCS_BEFORE["stereo"]},
         "cross_modal": {"syncs": cm_syncs, "syncs_before": SYNCS_BEFORE["cross_modal"]},
         "integrated": integ, **streams, "stereo_topk": topk, "cross_modal_per_frame": cm_frame,
         "mono": mono, "latency": latency, "parallax_gate": parallax, "checkpoint": ckpt,
-        "p3p": p3p, "cross_modal_5point": cm5}, "card": card}))
+        "p3p": p3p, "cross_modal_5point": cm5, "parallel": par}, "card": card}))
 
     # --- kernel timings ---
     tg, event_floor = time_gather(dev, shim.calls)
@@ -1959,6 +2427,10 @@ def main() -> int:
               f"{r['ops']:.3g} ops); card {card}")
     strip_t, pairs_t = tm["strip_session"], tm["pairs_scale_lm"]
 
+    phase_s["kernel timings"] = time.perf_counter() - t_start - sum(phase_s.values())
+    print(f"phase seconds {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, total "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     headline = f"path 11x138 on {rig.height}x{rig.width}"  # the ZNCC strip, level 0
     strip = tg[headline]
     print(json.dumps({"kernels": [{
@@ -1981,7 +2453,9 @@ def main() -> int:
                              "latency_ba": latency["ba"]["launches"]["gather_tiles"],
                              "parallax_gate": parallax["parallax_2"]["launches"],
                              "stereo_p3p": p3p["launches"],
-                             "cross_modal_5point": cm5["launches"]["gather_tiles"]},
+                             "cross_modal_5point": cm5["launches"]["gather_tiles"],
+                             "parallel_gloo_ranks": par["launches"]["gloo_ranks"],
+                             "parallel_nccl_rank": par["launches"]["nccl_rank"]},
         "max_abs_err": k1_err,
         "ms": strip["ms"],
         "warm_ms": strip["warm_ms"],

@@ -4,10 +4,12 @@ and runs ``OdometryPipeline.run_staged`` and ``run_streaming``,
 ``run_cross_modal_staged`` (with the 5-point solver too), the unified VO+BA
 engine (``run_unified_system``), the mono engines (``run_mono_staged`` with
 the hybrid escalating every step, so the exact 5-point runs, and
-``MonoOdometryPipeline``), and the latency mode (``OdometrySystem`` with BA
+``MonoOdometryPipeline``), the latency mode (``OdometrySystem`` with BA
 and the parallax gate, checkpointed and resumed, and staged stereo VO with
-``hyp_solver="p3p"``) on the CPU, then looks at every loaded module's name
-and ``__file__``."""
+``hyp_solver="p3p"``), and the parallel layer in one gloo rank (sharded VO,
+the sharded unified engine, window-parallel BA, stitching) on the CPU,
+after importing the host modules (io, sensors, viz, profiling, native) and
+both examples, then looks at every loaded module's name and ``__file__``."""
 
 import subprocess
 import sys
@@ -87,6 +89,36 @@ otraj = resumed.run(uframes[3:])
 assert otraj.shape == (5, 4, 4) and np.isfinite(otraj).all()
 ppipe = OdometryPipeline(cfg._replace(vo=cfg.vo._replace(hyp_solver="p3p")), device="cpu")
 assert np.isfinite(ppipe.run_staged(ls, rs, chunk=2)).all()
+import importlib.util
+from uasl_motion_estimation_tpu_torch import native, parallel
+from uasl_motion_estimation_tpu_torch.models.pipeline import make_sampler
+from uasl_motion_estimation_tpu_torch.parallel import launch, stitching
+from uasl_motion_estimation_tpu_torch.parallel.ba_windows import window_parallel_ba
+from uasl_motion_estimation_tpu_torch.solvers.ba import BAConfig, BAProblem
+from uasl_motion_estimation_tpu_torch.utils import io, profiling, sensors, viz
+for name in ("run_synthetic_torch", "run_dataset_torch"):
+    spec = importlib.util.spec_from_file_location(name, Path("examples") / f"{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+timer = profiling.StageTimer()
+with tempfile.TemporaryDirectory() as d, launch.process_group("gloo", 1, 0, d + "/store"):
+    mesh = launch.make_mesh(1, device="cpu")
+    with timer("vo"):
+        poses, ok, _, _ = parallel.sharded_sequence_vo(
+            ls[:-1], rs[:-1], ls[1:], rs[1:], make_sampler(0, cfg.vo.n_ransac), cfg, mesh)
+    scfg = SmootherConfig(pipe=cfg, ba_max_iter=3)
+    uls, urs = (np.clip(np.stack([f[k] for f in uframes]), 0, 255).astype(np.uint8)
+                for k in (0, 1))
+    uout = parallel.sharded_unified_scan(uls, urs, make_sampler(0, cfg.vo.n_ransac), scfg, mesh)
+    cams = torch.zeros(2, 3, 6)
+    cams[..., 5] = -torch.arange(3.0)
+    prob = BAProblem(cams, torch.rand(2, 8, 3) + torch.tensor([0.0, 0.0, 5.0]),
+                     torch.rand(2, 3, 8, 4) * 50, torch.ones(2, 3, 8, dtype=torch.bool))
+    bres = window_parallel_ba(prob, BAConfig(intr=intr, baseline=rig.baseline, n_fixed=1,
+                                             max_iter=2), mesh, n_sweeps=1)
+assert poses.shape == (2, 4, 4) and uout.vo_motions.shape == (1, 4, 4, 4)
+assert torch.isfinite(bres.cam).all() and timer.counts["vo"] == 1
+segs = torch.from_numpy(np.stack([traj[:2], traj[1:]]).astype(np.float32))
+assert stitching.stitch_segments(segs, 1).shape == (3, 4, 4)
 jax_pkg = (Path(uasl_motion_estimation_tpu_torch.__file__).resolve().parent.parent
            / "uasl_motion_estimation_tpu")
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))

@@ -10,7 +10,10 @@ version beside it (``ops/kernels/``).
 
 This package imports ``torch``, numpy and the standard library only: never
 ``jax`` and no file of the JAX package. It keeps its own copies of the
-numpy-only helpers it needs (``utils/synthetic.py``, ``utils/metrics.py``).
+numpy-only helpers it needs (``utils/synthetic.py``, ``utils/metrics.py``,
+``utils/io.py``, ``utils/sensors.py``, ``utils/viz.py``) and of the native
+frame loader (``native/``). Its parallel layer (``parallel/``) runs one
+process per rank under ``torch.distributed``.
 Entry points run on the CUDA card unless they are given ``device="cpu"``.
 """
 

@@ -35,7 +35,6 @@ from ..device import setup_device
 from ..ops import geometry as geo
 from ..ops import image as im
 from ..ops import lie
-from ..parallel.stitching import chain_covariances_np
 from ..solvers.ba import BAConfig, BAProblem, ba_camera_covariances, ba_solve, gate_tracks
 from . import frontend as fe
 from .pipeline import PipelineConfig, Sampler, _u8, make_sampler, stream_stacks
@@ -382,6 +381,8 @@ def _compose_from_chunks(chunks: list[tuple[UnifiedOutput, np.ndarray, int]], n_
     both endpoint frames (at least ``min_frame_obs``) whose refinement stays
     within ``install_disc_px`` of that window's own VO motion; else the VO
     motion stands."""
+    from ..parallel.stitching import chain_covariances_np  # the parallel layer imports this module
+
     b = n_frames - 1
     W = cfg.window
     motions = np.tile(np.eye(4), (b, 1, 1))

@@ -394,3 +394,57 @@ class SyntheticStereoSequence:
 
     def gt_positions(self) -> np.ndarray:
         return self.poses[:, :3, 3].copy()
+
+
+def stereo_ba_windows(rng: np.random.Generator, intr, baseline: float, n_cams: int,
+                      n_pts: int, window: int, overlap: int, noise: float,
+                      image_shape: tuple[int, int] | None = None):
+    """Windowed stereo-BA world: ``n_cams`` cameras (angle-axis, translation)
+    moving forward 0.8 m a frame, ``n_pts`` points 8-45 m ahead, their exact
+    stereo projections through ``intr`` (fu, fv, cu, cv) and ``baseline``,
+    observed where the point is in front (and inside ``image_shape`` (h, w)
+    where given) with ``noise`` px of Gaussian noise; cut into windows of
+    ``window`` frames overlapping by ``overlap``. Every draw comes from
+    ``rng``.
+
+    Returns (cams (n_cams, 6), starts, (cam, pts, obs, mask)): the last is
+    the windows' exact problem with a leading window axis, as
+    ``solvers.ba.BAProblem`` takes it."""
+    import torch
+
+    from ..ops import lie  # torch; the renderer above needs only numpy
+
+    i = np.arange(n_cams)[:, None]
+    cams = np.concatenate([i * [0.002, 0.004, 0.001], i * [0.05, 0.02, -0.8]], 1)
+    cams = cams.astype(np.float32)
+    pts = np.stack([rng.uniform(-10, 10, n_pts), rng.uniform(-3, 3, n_pts),
+                    rng.uniform(8, 45, n_pts)], -1).astype(np.float32)
+    R = lie.so3_exp(torch.from_numpy(cams[:, :3])).numpy()
+    pc = np.einsum("wij,mj->wmi", R, pts) + cams[:, None, 3:6]
+    z = pc[..., 2]
+    ul = intr.fu * pc[..., 0] / z + intr.cu
+    v = intr.fv * pc[..., 1] / z + intr.cv
+    ur = intr.fu * (pc[..., 0] - baseline) / z + intr.cu
+    obs = np.stack([ul, v, ur, v], -1).astype(np.float32)
+    mask = z > 1.0
+    if image_shape is not None:
+        mask &= (ul > 0) & (ul < image_shape[1]) & (v > 0) & (v < image_shape[0])
+    obs += rng.normal(scale=noise, size=obs.shape).astype(np.float32)
+    starts = list(range(0, n_cams - window + 1, window - overlap))
+    return cams, starts, (np.stack([cams[s:s + window] for s in starts]),
+                          np.stack([pts] * len(starts)),
+                          np.stack([obs[s:s + window] for s in starts]),
+                          np.stack([mask[s:s + window] for s in starts]))
+
+
+def perturb_windows(cam: np.ndarray, pts: np.ndarray, rng: np.random.Generator,
+                    n_fixed: int, pts_sigma: float = 0.3):
+    """A start for windowed BA: every window camera moved by N(0, 0.01) but
+    window 0's first ``n_fixed`` (they carry the gauge), then, where
+    ``pts_sigma`` > 0, every point by N(0, ``pts_sigma``). Returns
+    (cam, pts), float32."""
+    wc = cam + rng.normal(scale=0.01, size=cam.shape).astype(np.float32)
+    wc[0, :n_fixed] = cam[0, :n_fixed]
+    if pts_sigma > 0:
+        pts = pts + rng.normal(scale=pts_sigma, size=pts.shape).astype(np.float32)
+    return wc, pts
