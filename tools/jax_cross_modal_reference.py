@@ -10,6 +10,7 @@ the metric ATE; then one line with the medians over the seeds.
 
     JAX_PLATFORMS=cpu python3 tools/jax_cross_modal_reference.py [--seeds 0 1 2 3 4]
         [--engine staged|step] [--solver pencil8|5point|hybrid]
+        [--dump-draws DIR]
 
 ``--solver`` sets ``MonoVOParams.solver`` (default ``pencil8``, the
 configuration's own default).
@@ -22,6 +23,17 @@ over seeds rather than with one draw.
 is folded from its global index, so the chunk changes no result beyond
 vectorisation rounding. A small chunk keeps the CPU's memory low: the jnp
 MI path materialises a (500, 128, 121, 20) one-hot per step.
+
+``--dump-draws DIR`` writes instead, for each seed, the RANSAC draws of
+the session's staged engine (step i keyed ``fold_in(key(seed), i)``, split
+into one key per hypothesis, one Gumbel vector over the 500 feature slots
+each: ``mono_vo._mono_vo_impl``) as index orders:
+``DIR/cross_modal_draws_seed{seed}.npy``, (39 steps, 200 hypotheses, N)
+uint16, each row the slots by descending Gumbel noise, the first N = 64
+of them (``KEEP``). The first 8 valid slots of a row are the pencil8
+sample JAX draws on that valid mask (the first 5 the ``5point`` solver's:
+it keys its draws alike; the hybrid's escalation draws from another key).
+``tools/cross_modal_witness.py`` runs the port with them.
 
 ``--engine step`` runs the same steps through the jitted per-frame
 ``cross_modal_step`` instead, with ``s_prev`` fixed at 1.0 as the staged
@@ -56,6 +68,9 @@ from uasl_motion_estimation_tpu.ops.geometry import Intrinsics  # noqa: E402
 from uasl_motion_estimation_tpu.utils.metrics import ate_rmse  # noqa: E402
 from uasl_motion_estimation_tpu.utils.synthetic import (  # noqa: E402
     CameraRig, SyntheticStereoSequence)
+from jax_stress_reference import fold_in_orders  # noqa: E402
+
+KEEP = 64  # slots kept of each dumped order: the port's picks reach slot 31 at most
 
 
 def run_steps(frames, cfg, seed: int) -> CrossModalResult:
@@ -91,14 +106,24 @@ def main() -> int:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--engine", choices=("staged", "step"), default="staged")
     ap.add_argument("--solver", choices=("pencil8", "5point", "hybrid"), default="pencil8")
+    ap.add_argument("--dump-draws", metavar="DIR")
     args = ap.parse_args()
 
     rig = CameraRig()
-    seq = SyntheticStereoSequence(n_frames=args.frames, rig=rig, seed=0, cross_modal=True)
-    frames = [seq.frame(i) for i in range(args.frames)]
     intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
     cfg = CrossModalConfig(vo=MonoVOParams(intr=intr, solver=args.solver),
                            scale=ScaleConfig(intr=intr, baseline=rig.baseline))
+    if args.dump_draws:
+        Path(args.dump_draws).mkdir(parents=True, exist_ok=True)
+        for seed in args.seeds:
+            o = fold_in_orders(seed, args.frames - 1, cfg.vo.n_ransac, cfg.max_features)
+            path = Path(args.dump_draws) / f"cross_modal_draws_seed{seed}.npy"
+            np.save(path, o[..., :KEEP].astype(np.uint16))
+            print(json.dumps({"seed": seed, "draws": str(path),
+                              "shape": list(o[..., :KEEP].shape)}), flush=True)
+        return 0
+    seq = SyntheticStereoSequence(n_frames=args.frames, rig=rig, seed=0, cross_modal=True)
+    frames = [seq.frame(i) for i in range(args.frames)]
     gt_speed = np.linalg.norm(np.diff(seq.poses[:, :3, 3], axis=0), axis=1)
     rows = []
     for seed in args.seeds:

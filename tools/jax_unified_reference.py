@@ -10,13 +10,20 @@ the BA-refined chain, BA convergence and the gated observations per window,
 the successful motions; then one line with the medians over the seeds.
 
     JAX_PLATFORMS=cpu python3 tools/jax_unified_reference.py [--seeds 0 1 2]
-        [--corrupted] [--wchunk 1]
+        [--corrupted] [--wchunk 1] [--frames 40] [--small] [--track-gate-px PX]
 
 ``--corrupted`` renders the world of ``benchmarks/full_system.py``
 (``CorruptionConfig()``: photometric corruption, moving objects, an
 occluder). The seed keys only the RANSAC samples. The port cannot draw
 JAX's samples, so its accuracy is compared with JAX's over seeds rather
 than with one draw.
+
+``--small`` runs instead the 192x320 world of the JAX package's own
+integrated tests (``tests/test_smoother.py``: fu = fv = 320, 256 features,
+world seed 4; ``--wchunk 4`` groups its windows as ``run_unified_system``
+does there); ``--track-gate-px`` sets
+``SmootherConfig.track_gate_px`` (1e6 turns the pre-BA track gate off, as
+``tests/test_smoother.py``'s gate test does).
 
 ``--wchunk`` only sets how many windows are vmapped together (``bench.py``
 uses 5); each motion's key is folded from its global index, so it changes
@@ -56,19 +63,26 @@ def main() -> int:
     ap.add_argument("--wchunk", type=int, default=1)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--corrupted", action="store_true")
+    ap.add_argument("--small", action="store_true")
+    ap.add_argument("--track-gate-px", type=float, default=None)
     args = ap.parse_args()
 
-    rig = CameraRig()
-    seq = SyntheticStereoSequence(n_frames=args.frames, rig=rig, seed=0,
+    rig = CameraRig(fu=320.0, fv=320.0, cu=160.0, cv=96.0, baseline=0.54, height=192,
+                    width=320) if args.small else CameraRig()
+    world_seed = 4 if args.small else 0
+    seq = SyntheticStereoSequence(n_frames=args.frames, rig=rig, seed=world_seed,
                                   corruption=CorruptionConfig() if args.corrupted else None)
     frames = [seq.frame(i) for i in range(args.frames)]
     gt = seq.gt_positions()
     ls = jnp.asarray(np.clip(np.stack([f[0] for f in frames]), 0, 255).astype(np.uint8))
     rs = jnp.asarray(np.clip(np.stack([f[1] for f in frames]), 0, 255).astype(np.uint8))
-    cfg = SmootherConfig(pipe=default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv),
-                                             rig.baseline))
-    world = (f"CameraRig() {rig.height}x{rig.width}, {args.frames} frames, seed 0"
-             + (", CorruptionConfig()" if args.corrupted else ""))
+    pipe = default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), rig.baseline)
+    cfg = SmootherConfig(pipe=pipe._replace(max_features=256) if args.small else pipe)
+    if args.track_gate_px is not None:
+        cfg = cfg._replace(track_gate_px=args.track_gate_px)
+    world = (f"{rig.height}x{rig.width}, {args.frames} frames, seed {world_seed}"
+             + (", CorruptionConfig()" if args.corrupted else "")
+             + (f", track_gate_px {cfg.track_gate_px}" if args.track_gate_px else ""))
     rows = []
     for seed in args.seeds:
         t0 = time.perf_counter()

@@ -32,8 +32,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import JAX_LATENCY  # noqa: E402
-from topk_stereo_witness import draws_sampler  # noqa: E402
+from chip_smoke import JAX_LATENCY, DrawsSampler  # noqa: E402
 
 from uasl_motion_estimation_tpu_torch.models.odometry import (  # noqa: E402
     OdometryConfig, OdometrySystem)
@@ -62,7 +61,7 @@ def main() -> int:
         for seed in args.seeds:
             orders = np.load(Path(args.draws) / f"latency_draws_seed{seed}.npy")
             row = {"mode": mode, "seed": seed, "jax_ate_m": JAX_LATENCY[mode][seed]}
-            for name, sampler in (("port_jax_draws_ate_m", draws_sampler(orders, args.device)),
+            for name, sampler in (("port_jax_draws_ate_m", DrawsSampler(orders, args.device)),
                                   ("port_own_draws_ate_m", None)):
                 system = OdometrySystem(cfg, seed=seed, use_ba=mode == "ba",
                                         device=args.device, sampler=sampler)

@@ -32,6 +32,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from chip_smoke import DrawsSampler  # noqa: E402
 from uasl_motion_estimation_tpu_torch.models.pipeline import (  # noqa: E402
     OdometryPipeline, default_config)
 from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics  # noqa: E402
@@ -41,18 +42,6 @@ N_FRAMES, CHUNK = 40, 13
 # tools/jax_mono_reference.py --stereo-topk --seeds 0 1 2 3 4, on the CPU
 JAX_TOPK_ATE = [0.14897930153217467, 0.19743871820214268, 0.10794871517741095,
                 0.1599980819142645, 0.1135857873009703]
-
-
-def draws_sampler(orders: np.ndarray, device):
-    """The sampler seam fed JAX's draws: (steps, H, N) index orders."""
-    orders_t = torch.from_numpy(orders.astype(np.int64)).to(device)
-
-    def sample(step: int, valid: torch.Tensor) -> torch.Tensor:
-        perm = orders_t[step]  # (H, N)
-        first = torch.argsort((~valid[perm]).to(torch.int8), dim=-1, stable=True)[:, :3]
-        return torch.gather(perm, 1, first)
-
-    return sample
 
 
 def main() -> int:
@@ -71,7 +60,7 @@ def main() -> int:
     for seed in args.seeds:
         orders = np.load(Path(args.draws) / f"topk_draws_seed{seed}.npy")
         row = {"seed": seed, "jax_ate_m": JAX_TOPK_ATE[seed]}
-        for name, sampler in (("port_jax_draws_ate_m", draws_sampler(orders, args.device)),
+        for name, sampler in (("port_jax_draws_ate_m", DrawsSampler(orders, args.device)),
                               ("port_own_draws_ate_m", None)):
             pipe = OdometryPipeline(cfg, seed=seed, device=args.device, sampler=sampler)
             traj = pipe.run_staged(*pipe.stage_frames(frames), chunk=CHUNK)

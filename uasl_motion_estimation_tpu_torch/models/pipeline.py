@@ -59,27 +59,23 @@ def stream_stacks(stacks: Iterable[tuple[list, Any]], device: torch.device,
     arrays and anything the caller wants back with it; it is consumed in the
     uploader thread. Each stack is packed into a pinned host tensor and
     copied on a copy stream with ``non_blocking=True``; the caller's stream
-    waits on the copy's event before it reads. At most ``prefetch`` stacks
-    wait in the queue. Yields (lefts, rights, meta) with lefts and rights
-    (n, H, W) uint8 on ``device``. ``stats``, when given, gets per stack
+    waits on the copy's event before it reads. The uploader takes a stack
+    from ``stacks`` only while fewer than ``prefetch`` uploaded stacks wait
+    for the caller, so the device holds at most ``prefetch + 1`` stacks
+    (the bound the reference's streaming engines state), provided the
+    caller drops each stack before it asks for the next. Yields (lefts,
+    rights, meta) with lefts and rights (n, H, W) uint8 on ``device``.
+    ``stats``, when given, gets per stack
     ``upload_s`` (from packing to the copy's completion, timed in the
     uploader thread, so it overlaps compute) and ``upload_bytes``."""
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
-    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    q: queue.Queue = queue.Queue()
+    ahead = threading.Semaphore(prefetch)  # uploaded stacks the caller has not taken
     stop = threading.Event()
     if stats is not None:
         stats.setdefault("upload_s", [])
         stats.setdefault("upload_bytes", [])
-
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                continue
-        return False
 
     def upload(stack):
         t0 = time.perf_counter()
@@ -104,15 +100,24 @@ def stream_stacks(stacks: Iterable[tuple[list, Any]], device: torch.device,
             stats["upload_bytes"].append(staged.numel())
         return staged, done
 
+    def reserve() -> bool:
+        while not stop.is_set():
+            if ahead.acquire(timeout=0.1):
+                return True
+        return False
+
     def uploader():
         try:
-            for stack, meta in stacks:
-                if not put((*upload(stack), meta)):
-                    return
+            it = iter(stacks)
+            while reserve():
+                item = next(it, None)
+                if item is None:
+                    break
+                q.put((*upload(item[0]), item[1]))
         except Exception as e:  # handed to the consumer, which raises it
-            put(e)
+            q.put(e)
             return
-        put(None)
+        q.put(None)
 
     thread = threading.Thread(target=uploader, daemon=True)
     thread.start()
@@ -123,12 +128,15 @@ def stream_stacks(stacks: Iterable[tuple[list, Any]], device: torch.device,
                 break
             if isinstance(item, Exception):
                 raise item
+            ahead.release()
             staged, done, meta = item
+            del item
             if done is not None:
                 stream = torch.cuda.current_stream(device)
                 stream.wait_event(done)
                 staged.record_stream(stream)
             yield staged[0], staged[1], meta
+            del staged  # the caller is done with it
     finally:
         stop.set()
         thread.join()
@@ -355,6 +363,7 @@ class OdometryPipeline:
                                           self.cfg, chunk))
             n_frames = (n_frames or 1) + real
             step += real
+            del ls, rs  # before the next stack is taken (stream_stacks' bound)
         if packed:
             self._chain(torch.cat(packed).cpu().numpy())
         self.frame_idx += n_frames

@@ -528,6 +528,7 @@ def run_unified_streaming(frames: Iterable, cfg: SmootherConfig, seed: int = 0,
     results = []
     for ls, rs, (offset, n_real) in stream_stacks(stacks(), dev, prefetch, stats):
         results.append((_scan_packed(ls, rs, sampler, cfg, wchunk, offset), offset, n_real))
+        del ls, rs  # before the next super-chunk is taken (stream_stacks' bound)
     if not results:
         return FullSystemResult(
             traj_vo=np.eye(4)[None], traj_ba=np.eye(4)[None],
