@@ -101,6 +101,20 @@
      cross-modal session (seeds 0-4, every K2 call within 1e-5 of plain)
      and the unified engine on turn_10deg (seeds 0-5, within 5 mm of
      JAX's ATE);
+   - the JAX package's remaining published configurations
+     (``north_star_configs``, JAX's figures from
+     ``tools/jax_configs_reference.py`` on the CPU): config 2 of
+     ``benchmarks/extra_configs.py`` (EuRoC-like 480x752 stereo, 17 frames,
+     64 disparities, so a 11x74 ZNCC strip off K1's templates): staged VO
+     and the integrated engine over RANSAC seeds 0-4, every motion and
+     window, medians within 1.5x JAX's and BA's below VO's, the integrated
+     engine on JAX's draws (seeds 0-2) within 5 mm of JAX's ATE, frames/s
+     and K1 at the strip timed cold; config 3, the MI matcher's precision,
+     recall, median error and valid matches against JAX's and the bad-init
+     scale recoveries (every K2 call within 1e-5 of plain); config 4, 16
+     windows of 10 frames in one batched BA, each window against JAX's
+     ``vmap``; and ``benchmarks/cov_circuit.py``'s covariance calibration on
+     the corrupted world (seed 1); every K1 call held to plain;
    - the parallel layer (``parallel/``): every sharded entry point in 4
      gloo ranks that share the card (``run_ranks``; the kernels built here
      first), each rank's front-end under ``GatherShim(check=True)``, held
@@ -442,9 +456,86 @@ LONG_STREAM_TOL = 1e-4  # m, streaming against staged, as the 40-frame check
 JAX_LONG = {"ate_vo_m": [1.943], "ate_ba_m": [1.6006], "converged": 125, "windows": 125}
 LONG_DUMP = "benchmarks/unified_dump_long501.npz"
 # JAX's RANSAC draws, shipped with the tree: the cross-modal session's
-# (tools/jax_cross_modal_reference.py --seeds 0 1 2 3 4 --dump-draws) and the
-# unified turn_10deg run's (tools/jax_stress_reference.py --dump-draws)
+# (tools/jax_cross_modal_reference.py --seeds 0 1 2 3 4 --dump-draws), the
+# unified turn_10deg run's (tools/jax_stress_reference.py --dump-draws) and
+# config 2's unified run (tools/jax_configs_reference.py --dump-draws)
 DRAWS_DIR = "tools/jax_draws"
+# The JAX package's published configurations 2-4 (benchmarks/extra_configs.py)
+# and its engine-covariance check (benchmarks/cov_circuit.py:141-200), at their
+# own sizes, nothing cut. JAX's figures: tools/jax_configs_reference.py on the
+# CPU (JAX_PLATFORMS=cpu; --seeds 0 1 2 3 4 --cov-seeds 1).
+# Config 2 (extra_configs.py:33-106): the EuRoC-like rig at 480x752, 17
+# frames, world seed 1, default_config without image_shape (so
+# min_spread_area stays KITTI's 1000 px^2) and 64 disparities: the ZNCC strip
+# is 11 x (64 + 2 * 5), which no template instantiation of K1 covers; staged
+# chunk 8, the unified engine 4 windows a group (one group of 4)
+EUROC_RIG = dict(fu=458.65, fv=457.3, cu=367.2, cv=248.4, baseline=0.11, height=480, width=752)
+EUROC_FRAMES, EUROC_WORLD, EUROC_CHUNK, EUROC_WCHUNK, EUROC_DISP = 17, 1, 8, 4, 64
+EUROC_SEEDS = (0, 1, 2, 3, 4)
+EUROC_WITNESS_SEEDS = (0, 1, 2)  # on JAX's draws, DRAWS_DIR/unified_euroc_draws_seed*.npy
+EUROC_STRIP = (11, EUROC_DISP + 10)
+EUROC_SHAPES = [EUROC_STRIP, *(s for s in SHAPES if s != (11, N_DISP + 10))]
+JAX_EUROC = {
+    "staged_ate_m": [0.034357491062916364, 0.026409566075368932, 0.028695283068458637,
+                     0.023939945800632474, 0.018323684443862683],
+    "unified_ate_vo_m": [0.030376584388821428, 0.020882181359355358, 0.03019164995621043,
+                         0.021258322505165992, 0.017262880019555907],
+    "unified_ate_ba_m": [0.01163181694364112, 0.008778421785255237, 0.0139330206598416,
+                         0.010620214841768876, 0.011736358023176043],
+    # every motion and every window, at every seed
+    "staged_success": 16, "vo_success": 16, "ba_converged": 4,
+}
+EUROC_ATE_X = 1.5  # medians over EUROC_SEEDS against JAX's over the same seeds
+# Config 3 (extra_configs.py:109-209, its accuracy block): one
+# match_stereo(use_mi=True) on the 192x320 world of seed 2, right image
+# 255 - right, 256 top-k features, 64 disparities, against the renderer's
+# disparity; then bench_mi_scale's bad-init recovery (:293-333): the scale LM
+# from s_init 0.5 and 2.8 (coarse_candidates=13) on frame 0 of the
+# cross-modal world of seed 3, corners at exact depths over the true scale 1.4
+MI_WORLD, MI_FEATURES, MI_DISP = 2, 256, 64
+JAX_MI = {"valid_matches": 173, "n_matchable": 162, "median_abs_px_err": 0.12265145778656006,
+          "p90_abs_px_err": 0.42791450023651123, "precision_at_1px": 0.96875,
+          "recall_at_1px": 0.9567901234567902}
+MI_TOL = {"precision_at_1px": 0.01, "recall_at_1px": 0.01, "median_abs_px_err": 0.02}
+MI_VALID_TOL = 0.02  # valid matches, relative
+RECOVERY_WORLD, RECOVERY_FRAMES, RECOVERY_SCALE = 3, 12, 1.4
+JAX_RECOVERY = {0.5: 1.4690535068511963, 2.8: 1.346099615097046}
+RECOVERY_TOL, RECOVERY_JAX_TOL = 0.05, 2e-3  # of the true scale; of JAX's, relative
+# Config 4 (extra_configs.py:357-392): 16 windows of 10 frames x 256 points,
+# 0.3 px noise, as tests/test_ba.py builds and perturbs them (window s drawn
+# with seed s, perturbed with seed s + 100; its intrinsics, 640x480 image and
+# 0.5 m baseline), solved as one batch; JAX's jax.vmap(ba_solve) per window
+BA4_WINDOWS, BA4_FRAMES, BA4_POINTS, BA4_NOISE = 16, 10, 256, 0.3
+BA4_INTR, BA4_BASELINE = (400.0, 400.0, 320.0, 240.0), 0.5
+JAX_BA4 = {
+    "cost": [0.4030887186527252, 0.32730987668037415, 0.3835234045982361, 0.421810507774353,
+             0.3353882133960724, 0.437725692987442, 0.37899795174598694, 0.3952473998069763,
+             0.32148194313049316, 0.38330307602882385, 0.3510424494743347, 0.36541295051574707,
+             0.42362499237060547, 0.39484283328056335, 0.39196619391441345,
+             0.3955807089805603],
+    "n_iter": [4, 4, 4, 5, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4],
+    "converged": [True] * 16, "mean_cost": 0.3818966746330261,
+}
+JAX_BA4_FILE = "config4_ba_windows.npz"  # in DRAWS_DIR: JAX's cameras (--ba-out)
+BA4_COST_RTOL, BA4_CAM_TOL = 1e-4, 1e-4
+# LM iterations may differ by one at a window whose last step changes its
+# cost by less than float32 rounds the cost sum: window 3's 4th step lowers
+# it by 1.9e-7 relative in float64, and JAX's batch on the CPU (and the
+# port's there) rounds it to a rise of 6.4e-7, rejects it and stops after a
+# 5th, while the card's batch accepts it and stops after 4; the costs agree
+# within 3e-7 relative either way
+BA4_ITER_GAP = 1
+# The covariance check (cov_circuit.py:141-200): the unified engine at its
+# defaults (4 windows a group) on the 40-frame corrupted world of
+# benchmarks/full_system.py, RANSAC seed 1, as that block runs it
+COV_SEED, COV_WCHUNK = 1, 4  # 10 windows: groups of 4, 4 and 2
+JAX_COV = {"motion_cov_trace_median": 0.0007378017059949116,
+           "pose_cov_trace_first": 0.00017464874429369608,
+           "pose_cov_trace_last": 0.027772924569821344, "pose_cov_growth_x": 159.02161038797576,
+           "median_motion_t_err_m": 0.017305435912115124,
+           "median_motion_t_sigma_m": 0.027144627992068814,
+           "err_within_3sigma_frac": 0.8717948717948718}
+COV_FRAC_SLACK, COV_SIGMA_X = 0.1, 1.5
 # K1's cases on the paths, each (batches, images, tiles, features) held to
 # its plain version by check_gather: the stereo, cross-modal and integrated
 # paths; the mono engine; the per-frame loops (run_cross_modal and the
@@ -453,7 +544,9 @@ K1_HELD = [(K1_PATH_BATCHES, LEVELS, list(SHAPES), N_FEATURES),
            (MONO_BATCHES, MONO_LEVELS, KLT_SHAPES, MONO_FEATURES),
            ((1,), LEVELS, list(SHAPES), N_FEATURES),
            (PAR_K1_BATCHES, LEVELS, list(SHAPES), N_FEATURES),
-           (STRESS_BATCHES, STRESS_LEVELS, [*SHAPES, STRESS_TILE], 256)]
+           (STRESS_BATCHES, STRESS_LEVELS, [*SHAPES, STRESS_TILE], 256),
+           ((EUROC_CHUNK, EUROC_WCHUNK), MONO_LEVELS, EUROC_SHAPES, N_FEATURES),
+           ((COV_WCHUNK, PAR_UNIFIED_WINDOWS % COV_WCHUNK), LEVELS, list(SHAPES), N_FEATURES)]
 
 
 def held_cases() -> set:
@@ -516,7 +609,7 @@ def check_gather(dev) -> float:
     and 2x3 images, 1x1 and 3x5 tiles (odd areas, which reach the scalar
     head and tail), batch 1 and n 1 and 7; then at the mono engine's KLT
     tiles and 480x752 levels (batches 8, 4 and 1, 256 features) and the
-    per-frame cross-modal loop's (batch 1): every case of ``K1_HELD``."""
+    per-frame cross-modal loop's (batch 1), and the rest of ``K1_HELD``."""
     from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
 
     gen = torch.Generator().manual_seed(0)
@@ -1262,6 +1355,7 @@ def integrated_path(dev, rig, frames, gt, ls, rs, card) -> dict:
           f"{out['k1_calls']} launches, {out['k1_ms_per_run']} ms of device time per run "
           f"(torch.profiler); card {card}", flush=True)
     out["result"] = res0
+    out["corrupted_world"] = (cseq, cframes, cfg)
     return out
 
 
@@ -2857,6 +2951,433 @@ def witness_phase(dev, rig, staged, gt, own_ates, card) -> dict:
     return out
 
 
+def euroc_world():
+    """Config 2's world and configuration: (sequence, frames, PipelineConfig)."""
+    from uasl_motion_estimation_tpu_torch.models.frontend import MatcherConfig
+    from uasl_motion_estimation_tpu_torch.models.pipeline import default_config
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rig = synthetic.CameraRig(**EUROC_RIG)
+    seq = synthetic.SyntheticStereoSequence(n_frames=EUROC_FRAMES, rig=rig, seed=EUROC_WORLD)
+    cfg = default_config(Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv), rig.baseline)._replace(
+        matcher=MatcherConfig(max_disparity=EUROC_DISP))
+    return seq, [seq.frame(i) for i in range(EUROC_FRAMES)], cfg
+
+
+def euroc_unified(frames, cfg, seed: int, dev, sampler=None):
+    """Config 2's integrated engine: ``unified_system_scan(..., wchunk=4)``
+    composed, which is ``run_unified_system`` at that group size."""
+    from uasl_motion_estimation_tpu_torch.models.smoother import SmootherConfig, run_unified_system
+
+    return run_unified_system(frames, SmootherConfig(pipe=cfg), seed=seed, wchunk=EUROC_WCHUNK,
+                              device=dev, sampler=sampler)
+
+
+def euroc_witness(dev, seeds=EUROC_WITNESS_SEEDS, check=True, world=None) -> list[dict]:
+    """Config 2's integrated engine on JAX's draws (``DRAWS_DIR``), seed by
+    seed, beside JAX's ATE (``JAX_EUROC``); with ``check``, every K1 call
+    held to plain."""
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+
+    seq, frames, cfg = world or euroc_world()
+    gt = seq.gt_positions()
+    rows = []
+    for seed in seeds:
+        sampler = DrawsSampler(load_draws("unified_euroc", seed), dev, k=3)
+        kg.GATHER.launches = 0
+        with GatherShim(check=check) as shim:
+            res = euroc_unified(frames, cfg, seed, dev, sampler=sampler)
+        if check:
+            check_path_k1(f"config 2 witness seed {seed}", shim, kg.GATHER.launches)
+        ate_vo, ate_ba = unified_ates(res, gt)
+        jvo, jba = JAX_EUROC["unified_ate_vo_m"][seed], JAX_EUROC["unified_ate_ba_m"][seed]
+        rows.append({"seed": seed, "ate_vo_m": ate_vo, "ate_ba_m": ate_ba, "jax_ate_vo_m": jvo,
+                     "jax_ate_ba_m": jba, "diff_vo_m": ate_vo - jvo, "diff_ba_m": ate_ba - jba,
+                     "ba_converged": int(res.ba_converged.sum()),
+                     "deepest_pick": sampler.deepest, "launches": kg.GATHER.launches})
+    return rows
+
+
+def mi_accuracy(feats, v0, fr, v, gt_disp, min_disparity: float, max_disparity: int) -> dict:
+    """extra_configs.py:174-192's accuracy figures of one MI match against
+    the renderer's disparity, unrounded (numpy inputs)."""
+    meas = feats[:, 0] - fr[:, 0]
+    ix = np.clip(np.round(feats[:, 0]).astype(int), 0, gt_disp.shape[1] - 1)
+    iy = np.clip(np.round(feats[:, 1]).astype(int), 0, gt_disp.shape[0] - 1)
+    gt = gt_disp[iy, ix]
+    matchable = v0 & (gt > min_disparity) & (gt < max_disparity - 1)
+    err = np.abs(meas - gt)
+    accepted = v & matchable
+    correct = accepted & (err < 1.0)
+    return {"valid_matches": int(v.sum()), "n_matchable": int(matchable.sum()),
+            "median_abs_px_err": float(np.median(err[accepted])),
+            "p90_abs_px_err": float(np.percentile(err[accepted], 90)),
+            "precision_at_1px": float(correct.sum() / max(accepted.sum(), 1)),
+            "recall_at_1px": float(correct.sum() / max(matchable.sum(), 1))}
+
+
+def mi_matcher_accuracy(dev) -> dict:
+    """Config 3's accuracy block on ``dev``: detect_features and one
+    match_stereo(use_mi=True) on the 192x320 world of seed 2 with the right
+    image inverted; its figures (``mi_accuracy``)."""
+    from uasl_motion_estimation_tpu_torch.models import frontend as fe
+    from uasl_motion_estimation_tpu_torch.ops import image as im
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    seq = synthetic.SyntheticStereoSequence(n_frames=1, rig=small_rig(), seed=MI_WORLD)
+    left, right = seq.frame(0)
+    left = torch.from_numpy(np.asarray(left, np.float32)).to(dev)
+    right = torch.from_numpy(np.asarray(255.0 - right, np.float32)).to(dev)
+    feats, _, v0 = im.detect_features(left, max_features=MI_FEATURES)
+    cfg = fe.MatcherConfig(max_disparity=MI_DISP)
+    fr, _, v = fe.match_stereo(left, right, feats, v0, cfg, use_mi=True)
+    return mi_accuracy(feats.cpu().numpy(), v0.cpu().numpy(), fr.cpu().numpy(),
+                       v.cpu().numpy(), seq.gt_disparity(0), cfg.min_disparity, MI_DISP)
+
+
+def recovery_points(feats, v0, gt_disp, rig):
+    """extra_configs.py:303-318: the detected corners (N, 2) at the
+    renderer's exact depths, over the true scale; (points (N, 3) float32,
+    valid (N,)), numpy."""
+    ix = np.clip(np.round(feats[:, 0]).astype(int), 0, rig.width - 1)
+    iy = np.clip(np.round(feats[:, 1]).astype(int), 0, rig.height - 1)
+    d_gt = gt_disp[iy, ix]
+    z = np.where(d_gt > 1e-3, rig.fu * rig.baseline / np.maximum(d_gt, 1e-3), 0.0)
+    ok = v0 & (z > 2) & (z < 40)
+    X = np.stack([(feats[:, 0] - rig.cu) * z / rig.fu, (feats[:, 1] - rig.cv) * z / rig.fv, z],
+                 -1)
+    return (X / RECOVERY_SCALE).astype(np.float32), ok
+
+
+def bad_init_recovery(dev) -> dict:
+    """bench_mi_scale's bad-init recovery on ``dev``: the MI scale LM from
+    each ``JAX_RECOVERY`` start on frame 0 of the cross-modal world of seed
+    3, the grid-detected corners at the renderer's depths over the true
+    scale; {s_init: (recovered scale, LM iterations)}."""
+    from uasl_motion_estimation_tpu_torch.models.scale import ScaleConfig, estimate_scale
+    from uasl_motion_estimation_tpu_torch.ops import image as im
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    rig = small_rig()
+    seq = synthetic.SyntheticStereoSequence(n_frames=RECOVERY_FRAMES, rig=rig,
+                                            seed=RECOVERY_WORLD, cross_modal=True)
+    left, right = (torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in seq.frame(0))
+    feats, _, v0 = im.detect_features_grid(left, max_features=MI_FEATURES, quality_level=1e-4)
+    pts, ok = recovery_points(feats.cpu().numpy(), v0.cpu().numpy(), seq.gt_disparity(0), rig)
+    pts = torch.from_numpy(pts).to(dev)
+    scfg = ScaleConfig(intr=Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv),
+                       baseline=rig.baseline)._replace(coarse_candidates=13)
+    out = {}
+    for s_init in JAX_RECOVERY:
+        s, lm = estimate_scale(left, right, pts, torch.from_numpy(ok).to(dev),
+                               torch.tensor(s_init, device=dev), scfg)
+        out[s_init] = (float(s), int(lm.n_iter))
+    return out
+
+
+def ba4_problem():
+    """Config 4's 16 perturbed windows as one batched problem of numpy arrays
+    (cam, pts, obs, mask), built by the port's copy of tests/test_ba.py's
+    ``make_window`` and ``perturb`` (``synthetic.ba_window``), and its
+    BAConfig."""
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.solvers.ba import BAConfig
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    intr = Intrinsics(*BA4_INTR)
+    windows = []
+    for s in range(BA4_WINDOWS):
+        cams, pts, obs, mask = synthetic.ba_window(intr, BA4_BASELINE, n_frames=BA4_FRAMES,
+                                                   n_pts=BA4_POINTS, noise=BA4_NOISE, seed=s)
+        windows.append((*synthetic.perturb_ba_window(cams, pts, seed=s + 100), obs, mask))
+    return tuple(np.stack(x) for x in zip(*windows)), BAConfig(intr=intr, baseline=BA4_BASELINE)
+
+
+def covariance_figures(res, poses) -> dict:
+    """cov_circuit.py:176-200's figures of one unified result against the
+    true poses, unrounded: each motion's translation error against the
+    sigma its emitted covariance gives, and the pose covariances' chain."""
+    tr_p = np.trace(res.pose_cov, axis1=1, axis2=2)
+    err_t = []
+    for j in range(len(poses) - 1):
+        # m_j maps frame-j points into frame j + 1, as the engine emits it
+        m_est = np.linalg.inv(res.traj_ba[j + 1]) @ res.traj_ba[j]
+        m_gt = np.linalg.inv(poses[j + 1]) @ poses[j]
+        err_t.append(np.linalg.norm(m_est[:3, 3] - m_gt[:3, 3]))
+    err_t = np.asarray(err_t)
+    sigma_t = np.sqrt(np.trace(res.motion_cov[:, :3, :3], axis1=1, axis2=2))
+    return {"motion_cov_trace_median": float(np.median(np.trace(res.motion_cov, axis1=1,
+                                                                axis2=2))),
+            "pose_cov_trace_first": float(tr_p[1]), "pose_cov_trace_last": float(tr_p[-1]),
+            "pose_cov_positive": bool((tr_p[1:] > 0).all()),
+            "pose_cov_growth_x": float(tr_p[-1] / max(tr_p[1], 1e-12)),
+            "median_motion_t_err_m": float(np.median(err_t)),
+            "median_motion_t_sigma_m": float(np.median(sigma_t)),
+            "err_within_3sigma_frac": float(np.mean(err_t < 3 * np.maximum(sigma_t, 1e-9)))}
+
+
+def config2_euroc(dev, card, held) -> dict:
+    """Config 2 on the card: staged VO and the integrated engine over RANSAC
+    seeds 0-4 (every motion, every window converged, medians within
+    ``EUROC_ATE_X`` of JAX's, BA's below VO's), the integrated engine on
+    JAX's draws (seeds 0-2, within ``WITNESS_TOL`` of JAX's ATE), frames/s of
+    each (median of 3 after the seed runs), their stream syncs and K1 per
+    run, and K1 at the 11x74 strip timed as the K1 table's rows."""
+    from uasl_motion_estimation_tpu_torch.models.pipeline import OdometryPipeline, make_sampler
+    from uasl_motion_estimation_tpu_torch.models.smoother import (
+        SmootherConfig, unified_system_scan)
+    from uasl_motion_estimation_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    world = euroc_world()
+    seq, frames, cfg = world
+    gt = seq.gt_positions()
+    out: dict = {"render_s": time.perf_counter() - t0}
+    pipe = OdometryPipeline(cfg, seed=0, device=dev)
+    ls, rs = pipe.stage_frames(frames)
+    staged, unified = [], []
+    for seed in EUROC_SEEDS:
+        log = metrics.MetricsLogger()
+        pipe = OdometryPipeline(cfg, seed=seed, device=dev, logger=log)
+        traj, shim = held(f"config 2 staged seed {seed}",
+                          lambda: pipe.run_staged(ls, rs, chunk=EUROC_CHUNK),
+                          keep=K1_PER_CHUNK if seed == 0 else 0)
+        if seed == 0:
+            strip_calls = [c for c in shim.calls if (c[2], c[3]) == EUROC_STRIP]
+        staged.append({"seed": seed, "ate_m": float(metrics.ate_rmse(traj[:, :3, 3], gt)),
+                       "success": sum(bool(r["success"]) for r in log.records)})
+        res, _ = held(f"config 2 integrated seed {seed}",
+                      lambda: euroc_unified(frames, cfg, seed, dev))
+        ate_vo, ate_ba = unified_ates(res, gt)
+        unified.append({"seed": seed, "ate_vo_m": ate_vo, "ate_ba_m": ate_ba,
+                        "vo_success": int((res.per_frame[:, 16] > 0.5).sum()),
+                        "ba_converged": int(res.ba_converged.sum()),
+                        "windows": len(res.ba_converged)})
+    med = {"staged_ate_m": float(np.median([r["ate_m"] for r in staged])),
+           "unified_ate_vo_m": float(np.median([r["ate_vo_m"] for r in unified])),
+           "unified_ate_ba_m": float(np.median([r["ate_ba_m"] for r in unified]))}
+    jax_med = {k: float(np.median(JAX_EUROC[k])) for k in med}
+    out.update(staged=staged, unified=unified, median=med, jax_median=jax_med)
+    print(f"config 2 (EuRoC-like 480x752 stereo, 17 frames, 64 disparities): staged VO ATE by "
+          f"seed {[round(r['ate_m'], 5) for r in staged]} m, motions "
+          f"{[r['success'] for r in staged]}/{EUROC_FRAMES - 1}; integrated ATE VO "
+          f"{[round(r['ate_vo_m'], 5) for r in unified]} m, after BA "
+          f"{[round(r['ate_ba_m'], 5) for r in unified]} m, windows converged "
+          f"{[r['ba_converged'] for r in unified]}/{unified[0]['windows']}; medians staged "
+          f"{med['staged_ate_m']:.5f} (JAX {jax_med['staged_ate_m']:.5f}), VO "
+          f"{med['unified_ate_vo_m']:.5f} (JAX {jax_med['unified_ate_vo_m']:.5f}), BA "
+          f"{med['unified_ate_ba_m']:.5f} m (JAX {jax_med['unified_ate_ba_m']:.5f}; JAX r05 at "
+          f"seed 0: 0.0344 / 0.0304 / 0.0116 m)", flush=True)
+    bad = [r for r in staged if r["success"] < JAX_EUROC["staged_success"]]
+    bad += [r for r in unified if r["ba_converged"] < JAX_EUROC["ba_converged"]
+            or r["vo_success"] < JAX_EUROC["vo_success"]]
+    if bad:
+        raise AssertionError(f"config 2: a motion failed or a window did not converge: {bad}")
+    if not (all(med[k] <= EUROC_ATE_X * jax_med[k] for k in med)
+            and med["unified_ate_ba_m"] < med["unified_ate_vo_m"]):
+        raise AssertionError(f"config 2 medians {med} against JAX's {jax_med}: each must be "
+                             f"within {EUROC_ATE_X}x JAX's, BA's below VO's")
+
+    wit = []
+    for r in euroc_witness(dev, world=world):
+        wit.append(r)
+        print(f"config 2 witness, JAX's draws, seed {r['seed']}: ATE VO {r['ate_vo_m']:.5f} m, "
+              f"after BA {r['ate_ba_m']:.5f} m; JAX {r['jax_ate_vo_m']:.5f} / "
+              f"{r['jax_ate_ba_m']:.5f} m ({1e3 * r['diff_vo_m']:+.3f} / "
+              f"{1e3 * r['diff_ba_m']:+.3f} mm); converged {r['ba_converged']}; deepest pick "
+              f"{r['deepest_pick']}; K1 {r['launches']}", flush=True)
+    out["witness"] = wit
+    if not all(max(abs(r["diff_vo_m"]), abs(r["diff_ba_m"])) <= WITNESS_TOL for r in wit):
+        raise AssertionError(f"config 2 witness off JAX's ATE by more than {WITNESS_TOL} m: "
+                             f"{wit}")
+
+    pipe = OdometryPipeline(cfg, seed=0, device=dev)
+
+    def staged_run():
+        pipe.reset()
+        return pipe.run_staged(ls, rs, chunk=EUROC_CHUNK)
+
+    scfg, sampler = SmootherConfig(pipe=cfg), make_sampler(0, cfg.vo.n_ransac)
+
+    def unified_run():
+        return unified_system_scan(ls, rs, sampler, scfg, wchunk=EUROC_WCHUNK)
+
+    out["speed"] = {}
+    for name, run in (("staged", staged_run), ("integrated", unified_run)):
+        times = timed_runs(run)
+        kg_calls = K1_PER_CHUNK * -(-(EUROC_FRAMES - 1) // EUROC_CHUNK) if name == "staged" \
+            else K1_PER_GROUP
+        k1 = kernel_times_ms(run, K1_KERNEL, kg_calls)
+        r = out["speed"][name] = {
+            "fps": (EUROC_FRAMES - 1) / float(np.median(times)), "run_s": times,
+            "syncs": count_syncs(run), "k1_launches": kg_calls,
+            "k1_ms_per_run": None if k1 is None else sum(k1)}
+        print(f"config 2 {name} frames/s {r['fps']:.2f} (median of {times}); {r['syncs']} stream "
+              f"syncs per run; K1 {kg_calls} launches, {r['k1_ms_per_run']} ms of device time "
+              f"per run; card {card}", flush=True)
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    img, anc = strip_calls[0][:2]
+    h, w = img.shape[-2:]
+    img3 = img.reshape(-1, h, w)
+    out["k1_strip"] = time_gather_case({"anchors": "path", "img": img3,
+                                        "anc": anc.reshape(img3.shape[0], -1, 2),
+                                        "tile": EUROC_STRIP}, flush)
+    r = out["k1_strip"]
+    print(f"K1 at config 2's ZNCC strip {r['shape']} on {h}x{w} (generic instantiation): cold "
+          f"{r['ms']:.4f} ms (runs {r['ms_runs']}; the kernel alone {r['kernel_ms']} ms), warm "
+          f"{r['warm_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, grid_sample "
+          f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.2f} MB), "
+          f"share {100 * r['share']:.1f} %; card {card}", flush=True)
+    return out
+
+
+def config3_mi(dev, card) -> dict:
+    """Config 3 on the card: the MI matcher's accuracy (every K2 call within
+    ``K2_TOL`` of plain) within ``MI_TOL`` of JAX's, and the bad-init
+    recoveries within ``RECOVERY_TOL`` of the true scale and
+    ``RECOVERY_JAX_TOL`` of JAX's."""
+    from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
+
+    kmi.MI.launches = kmi.MI.strip_launches = 0
+    with MIShim() as mi:
+        acc = mi_matcher_accuracy(dev)
+    strip, held_strip = kmi.MI.strip_launches, mi.checked
+    out = {"accuracy": acc, "jax": JAX_MI, "k2_strip_launches": strip,
+           "k2_max_abs_err": mi.worst}
+    print(f"config 3 (MI matcher, 192x320, 256 features x 64 disparities, right image "
+          f"inverted): " + ", ".join(f"{k} {v:.5g} (JAX {JAX_MI[k]:.5g})" for k, v in acc.items())
+          + f"; K2 strip launches {strip}, each within {mi.worst:.3g} of plain (JAX r05: "
+          f"precision 0.968, recall 0.956, median 0.123 px)", flush=True)
+    kmi.MI.launches = kmi.MI.strip_launches = 0
+    with MIShim() as mi:
+        rec = bad_init_recovery(dev)
+    out["recovery"] = {str(k): {"recovered": s, "n_iter": n, "jax": JAX_RECOVERY[k]}
+                       for k, (s, n) in rec.items()}
+    out["k2_pair_launches"] = kmi.MI.launches - kmi.MI.strip_launches
+    out["k2_max_abs_err"] = max(out["k2_max_abs_err"], mi.worst)
+    print(f"config 3 bad-init recovery (true scale {RECOVERY_SCALE}): "
+          + "; ".join(f"from {k}: {s:.6f} in {n} iterations (JAX {JAX_RECOVERY[k]:.6f})"
+                      for k, (s, n) in rec.items())
+          + f"; K2 pair launches {out['k2_pair_launches']}, each within {mi.worst:.3g} of "
+          f"plain", flush=True)
+    bad = [k for k, tol in MI_TOL.items() if not abs(acc[k] - JAX_MI[k]) <= tol]
+    if not abs(acc["valid_matches"] - JAX_MI["valid_matches"]) <= MI_VALID_TOL * JAX_MI[
+            "valid_matches"]:
+        bad.append("valid_matches")
+    bad += [k for k, (s, _) in rec.items()
+            if not (abs(s - RECOVERY_SCALE) <= RECOVERY_TOL * RECOVERY_SCALE
+                    and abs(s - JAX_RECOVERY[k]) <= RECOVERY_JAX_TOL * JAX_RECOVERY[k])]
+    if bad or strip != 1 or held_strip != strip or mi.checked != kmi.MI.launches:
+        raise AssertionError(f"config 3 off JAX's figures at {bad}, or K2 unheld: {out}")
+    return out
+
+
+def config4_ba(dev, card) -> dict:
+    """Config 4 on the card: the 16 windows in one batched ``ba_solve``, each
+    held to JAX's ``jax.vmap(ba_solve)`` (cost, cameras, convergence, and
+    iterations within ``BA4_ITER_GAP``), its stream syncs (one host read per
+    LM iteration for the whole batch), and windows/s (median of 3 after it)."""
+    from uasl_motion_estimation_tpu_torch.solvers.ba import BAProblem, ba_solve
+
+    arrays, bcfg = ba4_problem()
+    prob = BAProblem(*(torch.from_numpy(a).to(dev) for a in arrays))
+    res = ba_solve(prob, bcfg)
+    cost = res.cost.cpu().numpy()
+    cam = res.cam.cpu().numpy()
+    n_iter = res.n_iter.cpu().numpy()
+    conv = res.converged.cpu().numpy()
+    jcam = np.load(Path(__file__).resolve().parent / DRAWS_DIR / JAX_BA4_FILE)["cam"]
+    jcost, jiter = np.asarray(JAX_BA4["cost"]), np.asarray(JAX_BA4["n_iter"])
+    times = timed_runs(lambda: ba_solve(prob, bcfg).cost.cpu())
+    out = {"cost": cost.tolist(), "mean_cost": float(cost.mean()),
+           "jax_mean_cost": JAX_BA4["mean_cost"],
+           "cost_rel_err": float(np.max(np.abs(cost - jcost) / jcost)),
+           "cam_err": float(np.abs(cam - jcam).max()), "n_iter": n_iter.tolist(),
+           "n_iter_gap": int(np.abs(n_iter - jiter).max()),
+           "n_iter_differ": np.nonzero(n_iter != jiter)[0].tolist(), "converged": conv.tolist(),
+           "syncs": count_syncs(lambda: ba_solve(prob, bcfg)),
+           "windows_s": BA4_WINDOWS / float(np.median(times)), "run_s": times}
+    print(f"config 4 (16 windows x 10 frames x 256 points, one batch): mean cost "
+          f"{out['mean_cost']:.6f} (JAX {JAX_BA4['mean_cost']:.6f}, r05 0.3819), per window "
+          f"cost within {out['cost_rel_err']:.3g} relative and cameras within "
+          f"{out['cam_err']:.3g} of JAX's, iterations {out['n_iter']} (JAX "
+          f"{JAX_BA4['n_iter']}; differ at windows {out['n_iter_differ']}), converged "
+          f"{int(conv.sum())}/{BA4_WINDOWS}; {out['syncs']} "
+          f"stream syncs per solve; {out['windows_s']:.2f} windows/s (median of {times}); card "
+          f"{card}", flush=True)
+    if not (out["cost_rel_err"] <= BA4_COST_RTOL and out["cam_err"] <= BA4_CAM_TOL
+            and out["converged"] == JAX_BA4["converged"] and out["n_iter_gap"] <= BA4_ITER_GAP
+            and out["syncs"] <= int(n_iter.max()) + 1):
+        raise AssertionError(f"config 4 off JAX's per-window solve: {out}")
+    return out
+
+
+def covariance_calibration(dev, card, world, held) -> dict:
+    """cov_circuit.py's engine-covariance block on the card: the corrupted
+    40-frame world through ``run_unified_system`` at RANSAC seed 1 (4 windows
+    a group, its default): pose covariances positive and growing, the share
+    of motions within 3 sigma no more than ``COV_FRAC_SLACK`` below JAX's,
+    the median translation sigma within ``COV_SIGMA_X`` of JAX's."""
+    from uasl_motion_estimation_tpu_torch.models.smoother import run_unified_system
+
+    seq, frames, cfg = world
+    res, _ = held("covariance run", lambda: run_unified_system(
+        frames, cfg, seed=COV_SEED, wchunk=COV_WCHUNK, device=dev))
+    fig = covariance_figures(res, seq.poses)
+    print(f"covariances (cov_circuit.py, corrupted 40-frame world, seed {COV_SEED}): "
+          + ", ".join(f"{k} {v:.6g} (JAX {JAX_COV[k]:.6g})" for k, v in fig.items()
+                      if k in JAX_COV)
+          + f"; every pose covariance after the first positive: {fig['pose_cov_positive']} "
+          f"(JAX r05: 89.7 % within 3 sigma, growth 2145x); card {card}", flush=True)
+    if not (fig["pose_cov_positive"] and fig["pose_cov_growth_x"] > 1.0
+            and fig["err_within_3sigma_frac"] >= JAX_COV["err_within_3sigma_frac"]
+            - COV_FRAC_SLACK
+            and fig["median_motion_t_sigma_m"] <= COV_SIGMA_X * JAX_COV["median_motion_t_sigma_m"]
+            and fig["median_motion_t_sigma_m"] >= JAX_COV["median_motion_t_sigma_m"]
+            / COV_SIGMA_X):
+        raise AssertionError(f"covariances off JAX's calibration: {fig}")
+    return fig
+
+
+def north_star_configs(dev, card, cov_world) -> dict:
+    """The JAX package's remaining published configurations on the card:
+    config 2 (``config2_euroc``), config 3 (``config3_mi``), config 4
+    (``config4_ba``) and cov_circuit.py's covariance check
+    (``covariance_calibration``, on ``cov_world``: (sequence, frames,
+    SmootherConfig) of the corrupted world). Every K1 call of every run is
+    held to the plain version exactly, at a case ``check_gather`` holds."""
+    from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
+
+    out: dict = {"launches": 0, "k1_held": 0}
+
+    def held(name, fn, keep=0):
+        kg.GATHER.launches = 0
+        with GatherShim(keep=keep, check=True) as shim:
+            result = fn()
+        check_path_k1(name, shim, kg.GATHER.launches)
+        out["launches"] += kg.GATHER.launches
+        out["k1_held"] += shim.checked
+        return result, shim
+
+    out["config2"] = config2_euroc(dev, card, held)
+    out["launches"] += sum(r["launches"] for r in out["config2"]["witness"])
+    out["k1_held"] += sum(r["launches"] for r in out["config2"]["witness"])
+    kg.GATHER.launches = 0
+    with GatherShim(check=True) as shim:
+        out["config3"] = config3_mi(dev, card)
+    check_path_k1("config 3", shim, kg.GATHER.launches)
+    out["launches"] += kg.GATHER.launches
+    out["k1_held"] += shim.checked
+    out["config4"] = config4_ba(dev, card)
+    out["covariances"] = covariance_calibration(dev, card, cov_world, held)
+    print(f"north-star configurations: K1 {out['launches']} launches, every one held to plain "
+          f"exactly ({out['k1_held']})", flush=True)
+    return out
+
+
 def timed_runs(run, n=3) -> list[float]:
     times = []
     for _ in range(n):
@@ -2891,8 +3412,9 @@ def main() -> int:
     k1_err = check_gather(dev)
     print(f"K1 == plain at {len(SHAPES)} tile shapes x {len(LEVELS)} levels (batches {CHUNK} "
           f"and {UNIFIED_WCHUNK}), at the edge cases, at the mono engine's {len(KLT_SHAPES)} KLT "
-          f"tiles x {len(MONO_LEVELS)} levels (batches {MONO_BATCHES}) and the per-frame loops' "
-          f"batch 1, max abs err {k1_err}")
+          f"tiles x {len(MONO_LEVELS)} levels (batches {MONO_BATCHES}), the per-frame loops' "
+          f"batch 1 and every other case of K1_HELD ({len(held_cases())} cases in all), max abs "
+          f"err {k1_err}")
     k2_err, ent_err = check_mi(dev)
     print(f"K2 vs plain at the matcher and scale shapes, sentinels 20/25/31/400, P 81/121, "
           f"bins 20/32: max abs err {k2_err:.3g} (tolerance {K2_TOL}); identical patches "
@@ -3045,6 +3567,7 @@ def main() -> int:
     integ = phase("integrated", integrated_path, dev, rig, frames, gt, ls, rs, card)
     streams = phase("streaming", streaming_paths, dev, rig, frames, pipe, traj,
                     integ.pop("result"), card)
+    cov_world = integ.pop("corrupted_world")
 
     # --- stereo with the top-k detector, the per-frame cross-modal loop, and
     # the monocular engine ---
@@ -3073,6 +3596,11 @@ def main() -> int:
     finally:
         render.close()
 
+    # --- the JAX package's remaining published configurations: EuRoC-like
+    # stereo VO and VO+BA, the MI matcher's accuracy, 16 batched 10-frame BA
+    # windows, and the engine's covariance calibration ---
+    north = phase("north_star_configs", north_star_configs, dev, card, cov_world)
+
     # --- the parallel layer: 4 gloo ranks sharing the card, one NCCL rank,
     # and the synthetic example ---
     par = phase("parallel", parallel_phase, dev, rig, frames, card)
@@ -3082,7 +3610,8 @@ def main() -> int:
         "integrated": integ, **streams, "stereo_topk": topk, "cross_modal_per_frame": cm_frame,
         "mono": mono, "latency": latency, "parallax_gate": parallax, "checkpoint": ckpt,
         "p3p": p3p, "cross_modal_5point": cm5, "stress_worlds": stress,
-        "long_sequence": long_seq, "witness": witness, "parallel": par}, "card": card}))
+        "long_sequence": long_seq, "witness": witness, "north_star_configs": north,
+        "parallel": par}, "card": card}))
 
     # --- kernel timings ---
     tg, event_floor = time_gather(dev, shim.calls)
@@ -3140,6 +3669,7 @@ def main() -> int:
                              "witness_cross_modal": witness["cross_modal"][0]["launches"][
                                  "gather_tiles"],
                              "witness_unified_turn10": witness["unified_turn10"][0]["launches"],
+                             "north_star_configs": north["launches"],
                              "parallel_gloo_ranks": par["launches"]["gloo_ranks"],
                              "parallel_nccl_rank": par["launches"]["nccl_rank"]},
         "max_abs_err": k1_err,
@@ -3162,6 +3692,9 @@ def main() -> int:
         "kernel_ms": strip["kernel_ms"],
         "event_floor_ms": event_floor,
         "stress_tile_cold_ms": stress["k1_cold"],
+        "euroc_strip": {key: north["config2"]["k1_strip"][key] for key in (
+            "shape", "image", "ms", "kernel_ms", "warm_ms", "plain_ms", "library_ms", "bound_ms",
+            "share")},
         "timings": {name: {key: r[key] for key in (
             "anchors", "shape", "image", "ms", "kernel_ms", "warm_ms", "plain_ms", "library_ms",
             "bound_ms", "share", "kernel_share", "launches")} for name, r in tg.items()},
@@ -3177,8 +3710,10 @@ def main() -> int:
                              "latency_vo": latency["vo"]["launches"]["mi_hist"],
                              "cross_modal_5point": cm5["launches"]["mi_hist"],
                              "witness_cross_modal": witness["cross_modal"][0]["launches"][
-                                 "mi_hist"]},
-        "max_abs_err": max(k2_err, strip_t["max_abs_err"],
+                                 "mi_hist"],
+                             "config3_mi": north["config3"]["k2_strip_launches"]
+                             + north["config3"]["k2_pair_launches"]},
+        "max_abs_err": max(k2_err, strip_t["max_abs_err"], north["config3"]["k2_max_abs_err"],
                            *(r["k2_max_abs_err"] for r in witness["cross_modal"])),
         "ms": strip_t["ms"],
         "plain_ms": strip_t["plain_ms"],

@@ -8,8 +8,10 @@ the hybrid escalating every step, so the exact 5-point runs, and
 and the parallax gate, checkpointed and resumed, and staged stereo VO with
 ``hyp_solver="p3p"``), and the parallel layer in one gloo rank (sharded VO,
 the sharded unified engine, window-parallel BA, stitching) on the CPU,
-after importing the host modules (io, sensors, viz, profiling, native) and
-both examples, then looks at every loaded module's name and ``__file__``."""
+after importing the host modules (io, sensors, viz, profiling, native), both
+examples, ``chip_smoke.py`` (building config 4's BA windows) and the witness
+tools the card runs, then looks at every loaded module's name and
+``__file__``."""
 
 import subprocess
 import sys
@@ -99,6 +101,13 @@ from uasl_motion_estimation_tpu_torch.utils import io, profiling, sensors, viz
 for name in ("run_synthetic_torch", "run_dataset_torch"):
     spec = importlib.util.spec_from_file_location(name, Path("examples") / f"{name}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+sys.path.insert(0, ".")
+import chip_smoke
+for name in ("north_star_witness", "unified_witness"):
+    spec = importlib.util.spec_from_file_location(name, Path("tools") / f"{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+(cam4, _, _, mask4), _ = chip_smoke.ba4_problem()
+assert cam4.shape == (16, 10, 6) and mask4.any()
 timer = profiling.StageTimer()
 with tempfile.TemporaryDirectory() as d, launch.process_group("gloo", 1, 0, d + "/store"):
     mesh = launch.make_mesh(1, device="cpu")

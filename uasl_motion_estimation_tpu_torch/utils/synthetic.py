@@ -448,3 +448,52 @@ def perturb_windows(cam: np.ndarray, pts: np.ndarray, rng: np.random.Generator,
     if pts_sigma > 0:
         pts = pts + rng.normal(scale=pts_sigma, size=pts.shape).astype(np.float32)
     return wc, pts
+
+
+def ba_window(intr, baseline: float, n_frames: int = 6, n_pts: int = 120, noise: float = 0.0,
+              stereo: bool = True, seed: int = 7, image_shape: tuple[int, int] = (480, 640)):
+    """One BA window with exact projections, drawn as the JAX package's BA
+    tests draw theirs (``make_window``): cameras (angle-axis, world->cam
+    translation) moving -0.8 m along z a frame, ``n_pts`` points 8-30 m
+    ahead, their stereo (or mono) projections through ``intr`` and
+    ``baseline``, observed where in front and inside ``image_shape`` (h,
+    w), then ``noise`` px of Gaussian noise. Returns (cams, pts, obs, mask)
+    as float32 / bool numpy arrays."""
+    import torch
+
+    from ..ops import lie  # torch; the renderer above needs only numpy
+
+    rng = np.random.default_rng(seed)
+    i = np.arange(n_frames)[:, None]
+    cams = np.concatenate([i * [0.002, 0.004, 0.001], i * [0.05, 0.02, -0.8]], 1)
+    cams = cams.astype(np.float32)
+    pts = np.stack([rng.uniform(-8, 8, n_pts), rng.uniform(-3, 3, n_pts),
+                    rng.uniform(8, 30, n_pts)], -1).astype(np.float32)
+    obs = np.zeros((n_frames, n_pts, 4 if stereo else 2), np.float32)
+    mask = np.zeros((n_frames, n_pts), bool)
+    rot = lie.so3_exp(torch.from_numpy(cams[:, :3])).numpy()
+    for w, cam in enumerate(cams):
+        pc = pts @ rot[w].T + cam[3:6]
+        z = pc[:, 2]
+        ul = intr.fu * pc[:, 0] / z + intr.cu
+        v = intr.fv * pc[:, 1] / z + intr.cv
+        if stereo:
+            ur = intr.fu * (pc[:, 0] - baseline) / z + intr.cu
+            obs[w] = np.stack([ul, v, ur, v], -1)
+        else:
+            obs[w] = np.stack([ul, v], -1)
+        mask[w] = (z > 1.0) & (ul > 0) & (ul < image_shape[1]) & (v > 0) & (v < image_shape[0])
+    obs += rng.normal(scale=noise, size=obs.shape)
+    return cams, pts, obs, mask
+
+
+def perturb_ba_window(cams: np.ndarray, pts: np.ndarray, cam_scale: float = 0.01,
+                      pt_scale: float = 0.3, seed: int = 13):
+    """``ba_window``'s start for BA, as the JAX package's BA tests perturb
+    theirs: every camera but the first two moved by N(0, ``cam_scale``),
+    every point by N(0, ``pt_scale``). Returns (cams, pts), float32."""
+    rng = np.random.default_rng(seed)
+    cams_p = cams.copy()
+    cams_p[2:] += rng.normal(scale=cam_scale, size=cams_p[2:].shape)
+    pts_p = pts + rng.normal(scale=pt_scale, size=pts.shape)
+    return cams_p.astype(np.float32), pts_p.astype(np.float32)
