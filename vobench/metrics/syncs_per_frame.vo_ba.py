@@ -1,0 +1,6 @@
+"""Stream syncs of one integrated VO+BA pass, per stereo step: torch's sync
+debug mode over a pass without spans."""
+
+
+def read(ctx):
+    return None if ctx.syncs is None else ctx.syncs / ctx.work_per_pass
