@@ -8,7 +8,8 @@
   give equal results.
 - ``utils/viz.py``: every plot writes its PNG; ``covariance_ellipse``
   returns JAX's numbers.
-- ``utils/profiling.py``: ``StageTimer``'s counts and totals, ``force``.
+- ``utils/profiling.py``: ``StageTimer``'s counts and totals, and ``trace``
+  writing a Chrome trace with a program span in it.
 - ``native/``: the loader, built with g++ into ``_build/``, gives the
   frames of the port's ``ImageSequenceReader`` (skips where cv2 or
   OpenCV's headers are absent, as tests/test_native.py does).
@@ -320,24 +321,10 @@ def test_stage_timer_counts_and_totals():
     assert rep.splitlines()[0].startswith("a") and "x2" in rep and "x1" in rep
 
 
-def test_force_brings_every_tensor_to_the_host():
-    from collections import namedtuple
-
-    Pair = namedtuple("Pair", "a b")
-    tree = {"x": torch.arange(3), "y": [Pair(torch.ones(2), 5), (torch.zeros(1),)], "z": "s"}
-    out = profiling.force(tree)
-    assert isinstance(out["x"], np.ndarray) and out["x"].tolist() == [0, 1, 2]
-    assert isinstance(out["y"][0], Pair) and out["y"][0].b == 5
-    assert isinstance(out["y"][0].a, np.ndarray) and isinstance(out["y"][1][0], np.ndarray)
-    assert out["z"] == "s"
-    median, last = profiling.timeit_forced(lambda: torch.ones(2) * 3, reps=2, warmup=1)
-    assert median >= 0 and last.tolist() == [3.0, 3.0]
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     path = tmp_path / "trace.json"
     with profiling.trace(str(path)):
-        with profiling.annotate("stage"):
+        with profiling.span("stage"):
             torch.ones(8).sum()
     assert '"stage"' in path.read_text()
 

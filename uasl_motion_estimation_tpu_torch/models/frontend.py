@@ -20,6 +20,7 @@ from ..ops import image as im
 from ..ops import similarity as sim
 from ..ops import stereo as st
 from ..ops.kernels import mi as kmi
+from ..utils import profiling
 
 
 class MatcherConfig(NamedTuple):
@@ -250,6 +251,7 @@ def klt_track(
     eig_ok = torch.ones_like(valid_prev)
     lvl0 = None
     n_iters = []
+    trips = reads = 0
 
     for level in range(cfg.n_levels - 1, -1, -1):
         p_prev = pts_prev / 2.0 ** level
@@ -288,8 +290,10 @@ def klt_track(
         delta = torch.full(batch, torch.inf, dtype=d.dtype, device=d.device)
         for _ in range(iters_level):
             active = (n_it < iters_level) & (delta > cfg.converge_px)
+            reads += 1
             if not bool(active.any()):
                 break
+            trips += 1
             patch = im.sample_tiles(tiles, p_prev + d - anchor_f - r, k)
             err = patch - tpl
             err = err - torch.mean(err, dim=(-2, -1), keepdim=True)
@@ -330,6 +334,9 @@ def klt_track(
         & im.patch_in_bounds(pts_next, r + 1, h, w)
         & im.patch_in_bounds(pts_prev, r + 1, h, w)
     )
+    profiling.count("klt.calls")
+    profiling.count("klt.trips", trips)
+    profiling.count("sync.klt", reads)
     return KLTResult(pts=pts_next, valid=valid, residual=residual,
                      n_iter=torch.stack(n_iters, dim=-1))
 

@@ -28,6 +28,7 @@ import torch
 from ..device import setup_device
 from ..ops import geometry as geo
 from ..ops import image as im
+from ..utils import profiling
 from . import frontend as fe
 from .stereo_vo import StereoVOParams, _sample_hypotheses, sample_generator, stereo_vo_solve
 
@@ -170,17 +171,20 @@ def _step(prev_left, prev_right, cur_left, cur_right, steps, sampler, cfg,
           pyr_prev=None, pyr_cur=None) -> FrameOutput:
     """Front-end + pose solve for a batch of steps (global indices
     ``steps``) on f32 images (B, H, W)."""
-    qm = fe.quad_match_frames(
-        prev_left, prev_right, cur_left, cur_right,
-        max_features=cfg.max_features, matcher=cfg.matcher, klt=cfg.klt,
-        detect_kwargs=(("nms_radius", cfg.detect_nms_radius),
-                       ("quality_level", cfg.detect_quality)),
-        detector=cfg.detector, pyr_prev_left=pyr_prev, pyr_cur_left=pyr_cur,
-    )
+    with profiling.span("vo.frontend"):
+        qm = fe.quad_match_frames(
+            prev_left, prev_right, cur_left, cur_right,
+            max_features=cfg.max_features, matcher=cfg.matcher, klt=cfg.klt,
+            detect_kwargs=(("nms_radius", cfg.detect_nms_radius),
+                           ("quality_level", cfg.detect_quality)),
+            detector=cfg.detector, pyr_prev_left=pyr_prev, pyr_cur_left=pyr_cur,
+        )
     samples = None
     if cfg.vo.ransac:
-        samples = torch.stack([sampler(s, v) for s, v in zip(steps, qm.valid, strict=True)])
-    res = stereo_vo_solve(qm.uv, qm.valid, None, cfg.vo, samples=samples)
+        with profiling.span("vo.sample"):
+            samples = torch.stack([sampler(s, v) for s, v in zip(steps, qm.valid, strict=True)])
+    with profiling.span("vo.solve"):
+        res = stereo_vo_solve(qm.uv, qm.valid, None, cfg.vo, samples=samples)
     return FrameOutput(motion=res.motion, state=res.state, success=res.success,
                        n_matches=torch.sum(qm.valid, dim=-1), n_inliers=res.n_inliers,
                        mean_reproj_error=res.mean_reproj_error, cov=res.cov)
@@ -207,14 +211,15 @@ def vo_sequence_scan_shared(ls: torch.Tensor, rs: torch.Tensor, step0: int,
     n = int(ls.shape[0])
     outs = []
     for base in range(0, n - 1, chunk):
-        m = min(chunk, n - 1 - base)
-        lf = ls[base:base + m + 1].to(torch.float32)
-        rf = rs[base:base + m + 1].to(torch.float32)
-        pyr = im.build_pyramid(lf, cfg.klt.n_levels)
-        outs.append(_step(
-            lf[:-1], rf[:-1], lf[1:], rf[1:],
-            list(range(step0 + base, step0 + base + m)), sampler, cfg,
-            pyr_prev=[p[:-1] for p in pyr], pyr_cur=[p[1:] for p in pyr]))
+        with profiling.span("vo.chunk"):
+            m = min(chunk, n - 1 - base)
+            lf = ls[base:base + m + 1].to(torch.float32)
+            rf = rs[base:base + m + 1].to(torch.float32)
+            pyr = im.build_pyramid(lf, cfg.klt.n_levels)
+            outs.append(_step(
+                lf[:-1], rf[:-1], lf[1:], rf[1:],
+                list(range(step0 + base, step0 + base + m)), sampler, cfg,
+                pyr_prev=[p[:-1] for p in pyr], pyr_cur=[p[1:] for p in pyr]))
     return FrameOutput(*(torch.cat(xs) for xs in zip(*outs)))
 
 
@@ -264,18 +269,19 @@ class OdometryPipeline:
 
     def _chain(self, packed: np.ndarray) -> None:
         """Compose the host pose chain in float64 from packed step rows."""
-        pose = self.pose.copy()
-        for i in range(packed.shape[0]):
-            success = bool(packed[i, 16] > 0.5)
-            if success:
-                # pose_cur = pose_prev * motion^-1 (motion maps prev->cur pts)
-                pose = pose @ np.linalg.inv(packed[i, :16].reshape(4, 4).astype(np.float64))
-            self.trajectory.append(pose.copy())
-            if self.logger is not None:
-                self.logger.log(frame=self.frame_idx + i + 1, success=success,
-                                n_matches=int(packed[i, 17]), n_inliers=int(packed[i, 18]),
-                                mean_reproj_error=float(packed[i, 19]))
-        self.pose = pose
+        with profiling.span("vo.chain"):
+            pose = self.pose.copy()
+            for i in range(packed.shape[0]):
+                success = bool(packed[i, 16] > 0.5)
+                if success:
+                    # pose_cur = pose_prev * motion^-1 (motion maps prev->cur pts)
+                    pose = pose @ np.linalg.inv(packed[i, :16].reshape(4, 4).astype(np.float64))
+                self.trajectory.append(pose.copy())
+                if self.logger is not None:
+                    self.logger.log(frame=self.frame_idx + i + 1, success=success,
+                                    n_matches=int(packed[i, 17]), n_inliers=int(packed[i, 18]),
+                                    mean_reproj_error=float(packed[i, 19]))
+            self.pose = pose
 
     def process_pair(self, left: np.ndarray, right: np.ndarray) -> dict:
         """Feed one stereo pair; returns the per-frame metrics record."""
@@ -324,6 +330,7 @@ class OdometryPipeline:
         n = int(ls.shape[0])
         packed = _vo_scan_packed(ls, rs, self.frame_idx, self.sampler, self.cfg,
                                  chunk).cpu().numpy()
+        profiling.count("sync.vo_readback")
         self._chain(packed)
         self.frame_idx += n
         return np.asarray(self.trajectory)

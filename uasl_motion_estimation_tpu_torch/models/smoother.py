@@ -36,6 +36,7 @@ from ..ops import geometry as geo
 from ..ops import image as im
 from ..ops import lie
 from ..solvers.ba import BAConfig, BAProblem, ba_camera_covariances, ba_solve, gate_tracks
+from ..utils import profiling
 from . import frontend as fe
 from .pipeline import PipelineConfig, Sampler, _u8, make_sampler, stream_stacks
 from .stereo_vo import stereo_vo_solve
@@ -96,37 +97,38 @@ def _build_window_tracks(lf: torch.Tensor, rf: torch.Tensor, starts,
     ``lf``, ``rf`` (n, H, W) float32; ``starts`` (K,) host window starts.
     Returns (obs (K, W, M, 4) [ul, vl, ur, vr], mask (K, W, M) bool). A
     track's mask is monotone: once lost it stays lost."""
-    p = cfg.pipe
-    starts = [int(s) for s in starts]
-    l0, r0 = _frames_at(lf, starts), _frames_at(rf, starts)
-    feats, f_right, valid = _detect_and_match(l0, r0, p)
+    with profiling.span("unified.tracks"):
+        p = cfg.pipe
+        starts = [int(s) for s in starts]
+        l0, r0 = _frames_at(lf, starts), _frames_at(rf, starts)
+        feats, f_right, valid = _detect_and_match(l0, r0, p)
 
-    obs_slices = [torch.cat([feats, f_right], dim=-1)]
-    mask_slices = [valid]
-    pts = feats
-    disp = feats[..., 0] - f_right[..., 0]
-    pyr0 = im.build_pyramid(l0, p.klt.n_levels)
-    pyr_prev = pyr0
-    for j in range(1, cfg.window):
-        lj = _frames_at(lf, [s + j for s in starts])
-        rj = _frames_at(rf, [s + j for s in starts])
-        pyr_cur = im.build_pyramid(lj, p.klt.n_levels)
-        if cfg.track_mode == "template":
-            # anchored on the birth template, seeded by the chained position
-            tracked = fe.klt_track(l0, lj, feats, valid, p.klt, init_next=pts,
-                                   pyr_prev=pyr0, pyr_next=pyr_cur)
-        else:
-            tracked = fe.klt_track(l0, lj, pts, valid, p.klt, pyr_prev=pyr_prev,
-                                   pyr_next=pyr_cur)
-        fr, _, sv = fe.match_stereo(lj, rj, tracked.pts, tracked.valid, p.matcher,
-                                    d_prior=disp)
-        valid = valid & tracked.valid & sv
-        obs_slices.append(torch.cat([tracked.pts, fr], dim=-1))
-        mask_slices.append(valid)
-        pts = tracked.pts
-        disp = tracked.pts[..., 0] - fr[..., 0]
-        pyr_prev = pyr_cur
-    return torch.stack(obs_slices, dim=1), torch.stack(mask_slices, dim=1)
+        obs_slices = [torch.cat([feats, f_right], dim=-1)]
+        mask_slices = [valid]
+        pts = feats
+        disp = feats[..., 0] - f_right[..., 0]
+        pyr0 = im.build_pyramid(l0, p.klt.n_levels)
+        pyr_prev = pyr0
+        for j in range(1, cfg.window):
+            lj = _frames_at(lf, [s + j for s in starts])
+            rj = _frames_at(rf, [s + j for s in starts])
+            pyr_cur = im.build_pyramid(lj, p.klt.n_levels)
+            if cfg.track_mode == "template":
+                # anchored on the birth template, seeded by the chained position
+                tracked = fe.klt_track(l0, lj, feats, valid, p.klt, init_next=pts,
+                                       pyr_prev=pyr0, pyr_next=pyr_cur)
+            else:
+                tracked = fe.klt_track(l0, lj, pts, valid, p.klt, pyr_prev=pyr_prev,
+                                       pyr_next=pyr_cur)
+            fr, _, sv = fe.match_stereo(lj, rj, tracked.pts, tracked.valid, p.matcher,
+                                        d_prior=disp)
+            valid = valid & tracked.valid & sv
+            obs_slices.append(torch.cat([tracked.pts, fr], dim=-1))
+            mask_slices.append(valid)
+            pts = tracked.pts
+            disp = tracked.pts[..., 0] - fr[..., 0]
+            pyr_prev = pyr_cur
+        return torch.stack(obs_slices, dim=1), torch.stack(mask_slices, dim=1)
 
 
 def _inv_se3(T: torch.Tensor) -> torch.Tensor:
@@ -271,36 +273,40 @@ def _group_samples(qvalid: torch.Tensor, start_group: np.ndarray, sampler: Sampl
     motion index: (k, W-1, n_ransac, 3), or None without RANSAC."""
     if not cfg.pipe.vo.ransac:
         return None
-    return torch.stack([
-        torch.stack([sampler(index_offset + int(s) + j, qvalid[i, j])
-                     for j in range(cfg.window - 1)])
-        for i, s in enumerate(start_group)])
+    with profiling.span("unified.sample"):
+        return torch.stack([
+            torch.stack([sampler(index_offset + int(s) + j, qvalid[i, j])
+                         for j in range(cfg.window - 1)])
+            for i, s in enumerate(start_group)])
 
 
 def _group_vo(quv: torch.Tensor, qvalid: torch.Tensor, samples: torch.Tensor | None,
               cfg: SmootherConfig):
     """Per-motion stereo VO of the group: (VO result, window-local step
     motions (k, W-1, 4, 4) with every failed motion the identity)."""
-    vo = stereo_vo_solve(quv, qvalid, None, cfg.pipe.vo, samples=samples)
-    eye4 = torch.eye(4, dtype=vo.motion.dtype, device=vo.motion.device)
-    return vo, torch.where(vo.success[..., None, None], vo.motion, eye4)
+    with profiling.span("unified.vo"):
+        vo = stereo_vo_solve(quv, qvalid, None, cfg.pipe.vo, samples=samples)
+        eye4 = torch.eye(4, dtype=vo.motion.dtype, device=vo.motion.device)
+        return vo, torch.where(vo.success[..., None, None], vo.motion, eye4)
 
 
 def _group_ba(motions_local: torch.Tensor, obs: torch.Tensor, mask: torch.Tensor,
               cfg: SmootherConfig):
     """Windowed BA of the group from its VO motions: (problems, result)."""
-    problems = _init_window_problem_local(motions_local, obs, mask, cfg)
-    return problems, ba_solve(problems, _ba_config(cfg))
+    with profiling.span("unified.ba"):
+        problems = _init_window_problem_local(motions_local, obs, mask, cfg)
+        return problems, ba_solve(problems, _ba_config(cfg))
 
 
 def _group_covariances(problems: BAProblem, res, cfg: SmootherConfig):
     """(camera covariances (k, W, 6, 6), refined-motion covariances and
     refined motions (k, W-1, ...)) at the BA solution."""
-    cam_cov = ba_camera_covariances(problems._replace(cam=res.cam, pts=res.pts),
-                                    _ba_config(cfg))
-    Ts = T_from_cam6(res.cam)
-    refined = torch.matmul(Ts[:, 1:], _inv_se3(Ts[:, :-1]))
-    return cam_cov, _motion_covs_from_cam_covs(res.cam, cam_cov), refined
+    with profiling.span("unified.cov"):
+        cam_cov = ba_camera_covariances(problems._replace(cam=res.cam, pts=res.pts),
+                                        _ba_config(cfg))
+        Ts = T_from_cam6(res.cam)
+        refined = torch.matmul(Ts[:, 1:], _inv_se3(Ts[:, :-1]))
+        return cam_cov, _motion_covs_from_cam_covs(res.cam, cam_cov), refined
 
 
 def unified_solve_group(lf: torch.Tensor, rf: torch.Tensor, start_group: np.ndarray,
@@ -313,18 +319,19 @@ def unified_solve_group(lf: torch.Tensor, rf: torch.Tensor, start_group: np.ndar
     ``start_group`` (k,) window starts into ``lf``/``rf`` (n, H, W) float32;
     ``index_offset`` is the global index of frame 0. Returns the group's
     outputs packed as (k, F) float32 rows on the device (``_unpack``)."""
-    obs, mask = _build_window_tracks(lf, rf, start_group, cfg)
-    quv, qvalid = _quad_matches(obs, mask)
-    samples = _group_samples(qvalid, start_group, sampler, index_offset, cfg)
-    vo, motions_local = _group_vo(quv, qvalid, samples, cfg)
-    problems, res = _group_ba(motions_local, obs, mask, cfg)
-    cam_cov, ba_motion_cov, refined = _group_covariances(problems, res, cfg)
-    k = obs.shape[0]
-    fields = (motions_local, vo.success, torch.sum(qvalid, dim=-1), vo.n_inliers,
-              vo.mean_reproj_error, refined, res.cost, res.converged,
-              torch.sum(problems.mask, dim=(1, 2)), torch.sum(problems.mask, dim=2),
-              vo.cov, cam_cov, ba_motion_cov)
-    return torch.cat([f.reshape(k, -1).to(torch.float32) for f in fields], dim=1)
+    with profiling.span("unified.group"):
+        obs, mask = _build_window_tracks(lf, rf, start_group, cfg)
+        quv, qvalid = _quad_matches(obs, mask)
+        samples = _group_samples(qvalid, start_group, sampler, index_offset, cfg)
+        vo, motions_local = _group_vo(quv, qvalid, samples, cfg)
+        problems, res = _group_ba(motions_local, obs, mask, cfg)
+        cam_cov, ba_motion_cov, refined = _group_covariances(problems, res, cfg)
+        k = obs.shape[0]
+        fields = (motions_local, vo.success, torch.sum(qvalid, dim=-1), vo.n_inliers,
+                  vo.mean_reproj_error, refined, res.cost, res.converged,
+                  torch.sum(problems.mask, dim=(1, 2)), torch.sum(problems.mask, dim=2),
+                  vo.cov, cam_cov, ba_motion_cov)
+        return torch.cat([f.reshape(k, -1).to(torch.float32) for f in fields], dim=1)
 
 
 def _check_stride(cfg: SmootherConfig) -> None:
@@ -365,8 +372,9 @@ def unified_system_scan(ls: torch.Tensor, rs: torch.Tensor, sampler: Sampler,
     processed in streaming super-chunks solves the same per-motion problems
     as the same sequence staged whole. The outputs reach the host in one
     transfer."""
-    packed = _scan_packed(ls, rs, sampler, cfg, wchunk, index_offset)
-    return _unpack(packed.cpu().numpy(), cfg.window)
+    packed = _scan_packed(ls, rs, sampler, cfg, wchunk, index_offset).cpu().numpy()
+    profiling.count("sync.unified_readback")
+    return _unpack(packed, cfg.window)
 
 
 def _compose_from_chunks(chunks: list[tuple[UnifiedOutput, np.ndarray, int]], n_frames: int,
@@ -383,78 +391,79 @@ def _compose_from_chunks(chunks: list[tuple[UnifiedOutput, np.ndarray, int]], n_
     motion stands."""
     from ..parallel.stitching import chain_covariances_np  # the parallel layer imports this module
 
-    b = n_frames - 1
-    W = cfg.window
-    motions = np.tile(np.eye(4), (b, 1, 1))
-    packed = np.zeros((b, 20), np.float32)
-    # installed-motion covariances start at the failed-solve prior
-    motion_cov = np.tile(np.eye(6) * 1e2, (b, 1, 1))
-    best_vo = [(-1, -1)] * b  # (success, inliers) of the installed VO motion
-    ba_cands: dict[int, list] = {}
-    ba_cost, ba_conv, n_track = [], [], []
+    with profiling.span("unified.compose"):
+        b = n_frames - 1
+        W = cfg.window
+        motions = np.tile(np.eye(4), (b, 1, 1))
+        packed = np.zeros((b, 20), np.float32)
+        # installed-motion covariances start at the failed-solve prior
+        motion_cov = np.tile(np.eye(6) * 1e2, (b, 1, 1))
+        best_vo = [(-1, -1)] * b  # (success, inliers) of the installed VO motion
+        ba_cands: dict[int, list] = {}
+        ba_cost, ba_conv, n_track = [], [], []
 
-    for out, g_starts, n_valid in chunks:
-        vo_m = np.asarray(out.vo_motions, np.float64)
-        refined = np.asarray(out.refined_motions, np.float64)
-        nfo = np.asarray(out.n_frame_obs)
-        succ = np.asarray(out.vo_success)
-        n_matches = np.asarray(out.vo_n_matches)
-        n_inliers = np.asarray(out.vo_n_inliers)
-        vo_err = np.asarray(out.vo_err)
-        vo_cov = np.asarray(out.vo_cov, np.float64)
-        ba_mcov = np.asarray(out.ba_motion_cov, np.float64)
-        for i, s in enumerate(g_starts):
-            for j in range(W - 1):
-                m = s + j
-                if m >= b or s + j + 1 >= n_valid:
-                    continue  # padding / beyond the real sequence
-                key = (int(succ[i, j]), int(n_inliers[i, j]))
-                if key > best_vo[m]:
-                    best_vo[m] = key
-                    motions[m] = vo_m[i, j]
-                    motion_cov[m] = vo_cov[i, j]
-                    packed[m, :16] = vo_m[i, j].reshape(16)
-                    packed[m, 16] = float(succ[i, j])
-                    packed[m, 17] = float(n_matches[i, j])
-                    packed[m, 18] = float(n_inliers[i, j])
-                    packed[m, 19] = float(vo_err[i, j])
-                support = int(min(nfo[i, j], nfo[i, j + 1]))
-                if support >= cfg.min_frame_obs:
-                    ba_cands.setdefault(m, []).append(
-                        (support, refined[i, j], vo_m[i, j], ba_mcov[i, j]))
-        ba_cost.append(np.asarray(out.ba_cost))
-        ba_conv.append(np.asarray(out.ba_converged))
-        n_track.append(np.asarray(out.n_track_obs))
+        for out, g_starts, n_valid in chunks:
+            vo_m = np.asarray(out.vo_motions, np.float64)
+            refined = np.asarray(out.refined_motions, np.float64)
+            nfo = np.asarray(out.n_frame_obs)
+            succ = np.asarray(out.vo_success)
+            n_matches = np.asarray(out.vo_n_matches)
+            n_inliers = np.asarray(out.vo_n_inliers)
+            vo_err = np.asarray(out.vo_err)
+            vo_cov = np.asarray(out.vo_cov, np.float64)
+            ba_mcov = np.asarray(out.ba_motion_cov, np.float64)
+            for i, s in enumerate(g_starts):
+                for j in range(W - 1):
+                    m = s + j
+                    if m >= b or s + j + 1 >= n_valid:
+                        continue  # padding / beyond the real sequence
+                    key = (int(succ[i, j]), int(n_inliers[i, j]))
+                    if key > best_vo[m]:
+                        best_vo[m] = key
+                        motions[m] = vo_m[i, j]
+                        motion_cov[m] = vo_cov[i, j]
+                        packed[m, :16] = vo_m[i, j].reshape(16)
+                        packed[m, 16] = float(succ[i, j])
+                        packed[m, 17] = float(n_matches[i, j])
+                        packed[m, 18] = float(n_inliers[i, j])
+                        packed[m, 19] = float(vo_err[i, j])
+                    support = int(min(nfo[i, j], nfo[i, j + 1]))
+                    if support >= cfg.min_frame_obs:
+                        ba_cands.setdefault(m, []).append(
+                            (support, refined[i, j], vo_m[i, j], ba_mcov[i, j]))
+            ba_cost.append(np.asarray(out.ba_cost))
+            ba_conv.append(np.asarray(out.ba_converged))
+            n_track.append(np.asarray(out.n_track_obs))
 
-    fu = float(cfg.pipe.vo.intr1.fu)
+        fu = float(cfg.pipe.vo.intr1.fu)
 
-    def discrepancy_px(a, b_):
-        dt = np.linalg.norm(a[:3, 3] - b_[:3, 3])
-        Rr = a[:3, :3].T @ b_[:3, :3]
-        ang = np.arccos(np.clip((np.trace(Rr) - 1.0) / 2.0, -1.0, 1.0))
-        return fu * (dt / cfg.install_disc_depth_m + ang)
+        def discrepancy_px(a, b_):
+            dt = np.linalg.norm(a[:3, 3] - b_[:3, 3])
+            Rr = a[:3, :3].T @ b_[:3, :3]
+            ang = np.arccos(np.clip((np.trace(Rr) - 1.0) / 2.0, -1.0, 1.0))
+            return fu * (dt / cfg.install_disc_depth_m + ang)
 
-    motions_ba = motions.copy()
-    motion_cov_ba = motion_cov.copy()
-    for m, cands in ba_cands.items():
-        for _, ref, win_vo, mcov in sorted(cands, key=lambda c: -c[0]):
-            if discrepancy_px(ref, win_vo) <= cfg.install_disc_px:
-                motions_ba[m] = ref
-                motion_cov_ba[m] = mcov
-                break
+        motions_ba = motions.copy()
+        motion_cov_ba = motion_cov.copy()
+        for m, cands in ba_cands.items():
+            for _, ref, win_vo, mcov in sorted(cands, key=lambda c: -c[0]):
+                if discrepancy_px(ref, win_vo) <= cfg.install_disc_px:
+                    motions_ba[m] = ref
+                    motion_cov_ba[m] = mcov
+                    break
 
-    def chain(ms):
-        traj = np.empty((n_frames, 4, 4))
-        traj[0] = np.eye(4)
-        for i in range(b):
-            traj[i + 1] = traj[i] @ np.linalg.inv(ms[i])
-        return traj
+        def chain(ms):
+            traj = np.empty((n_frames, 4, 4))
+            traj[0] = np.eye(4)
+            for i in range(b):
+                traj[i + 1] = traj[i] @ np.linalg.inv(ms[i])
+            return traj
 
-    return FullSystemResult(
-        traj_vo=chain(motions), traj_ba=chain(motions_ba), per_frame=packed,
-        ba_cost=np.concatenate(ba_cost), ba_converged=np.concatenate(ba_conv),
-        n_track_obs=np.concatenate(n_track), motion_cov=motion_cov_ba,
-        pose_cov=chain_covariances_np(motions_ba, motion_cov_ba))
+        return FullSystemResult(
+            traj_vo=chain(motions), traj_ba=chain(motions_ba), per_frame=packed,
+            ba_cost=np.concatenate(ba_cost), ba_converged=np.concatenate(ba_conv),
+            n_track_obs=np.concatenate(n_track), motion_cov=motion_cov_ba,
+            pose_cov=chain_covariances_np(motions_ba, motion_cov_ba))
 
 
 def compose_unified(out: UnifiedOutput, n_frames: int, cfg: SmootherConfig

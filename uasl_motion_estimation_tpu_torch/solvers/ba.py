@@ -31,6 +31,7 @@ import torch
 
 from ..ops import geometry as geo
 from ..ops import lie
+from ..utils import profiling
 from .lm import _sel
 
 
@@ -244,45 +245,52 @@ def _clamp_depth(cam, pts, cfg: BAConfig) -> torch.Tensor:
 def ba_solve(problem: BAProblem, cfg: BAConfig) -> BAResult:
     """Run windowed BA to convergence (optimise(), BundleAdjuster.h:432-476)
     for every problem of the batch."""
-    cam0, obs = problem.cam, problem.obs
-    mask = problem.mask.to(cam0.dtype)
-    pt_valid = torch.sum(mask, dim=-2) >= 2.0  # (..., M): >= 2 views
-    batch = cam0.shape[:-2]
+    with profiling.span("ba.solve"):
+        cam0, obs = problem.cam, problem.obs
+        mask = problem.mask.to(cam0.dtype)
+        pt_valid = torch.sum(mask, dim=-2) >= 2.0  # (..., M): >= 2 views
+        batch = cam0.shape[:-2]
 
-    cam, pts = cam0, problem.pts
-    cost = _robust_cost(_residuals(cam, pts, obs, cfg), mask, cfg.huber_delta)
-    lam = torch.full(batch, cfg.lambda0, dtype=cam0.dtype, device=cam0.device)
-    k = torch.zeros(batch, dtype=torch.int32, device=cam0.device)
-    done = torch.zeros(batch, dtype=torch.bool, device=cam0.device)
+        cam, pts = cam0, problem.pts
+        cost = _robust_cost(_residuals(cam, pts, obs, cfg), mask, cfg.huber_delta)
+        lam = torch.full(batch, cfg.lambda0, dtype=cam0.dtype, device=cam0.device)
+        k = torch.zeros(batch, dtype=torch.int32, device=cam0.device)
+        done = torch.zeros(batch, dtype=torch.bool, device=cam0.device)
 
-    for _ in range(cfg.max_iter):
-        if bool(done.all()):
-            break
-        U, V, Wc, bc, bp, cost_lin = _normal_blocks(cam, pts, obs, mask, cfg)
-        dcam, dpts, ok = _schur_solve(U, V, Wc, bc, bp, lam, cfg.n_fixed, pt_valid)
-        cam_new = cam + dcam
-        pts_new = _clamp_depth(cam_new, pts + dpts, cfg)
-        cost_new = _robust_cost(_residuals(cam_new, pts_new, obs, cfg), mask,
-                                cfg.huber_delta)
+        trips = reads = 0
+        for _ in range(cfg.max_iter):
+            reads += 1
+            if bool(done.all()):
+                break
+            trips += 1
+            U, V, Wc, bc, bp, cost_lin = _normal_blocks(cam, pts, obs, mask, cfg)
+            dcam, dpts, ok = _schur_solve(U, V, Wc, bc, bp, lam, cfg.n_fixed, pt_valid)
+            cam_new = cam + dcam
+            pts_new = _clamp_depth(cam_new, pts + dpts, cfg)
+            cost_new = _robust_cost(_residuals(cam_new, pts_new, obs, cfg), mask,
+                                    cfg.huber_delta)
 
-        # a window that is done keeps everything: under vmap the JAX loop
-        # runs to the slowest window, and without this latch a converged
-        # window would keep taking steps driven by its batch-mates
-        accept = ok & (cost_new < cost_lin) & ~done
-        rel_decrease = (cost_lin - cost_new) / torch.clamp(cost_lin, min=1e-12)
-        # a small decrease signals convergence only when damping is not
-        # inflated (an accepted but heavily damped step is just a short step)
-        newly_done = accept & (rel_decrease < cfg.ftol) & (lam <= cfg.lambda0)
-        lam_next = torch.where(accept, torch.clamp(lam * cfg.lambda_down, min=cfg.lambda_min),
-                               torch.clamp(lam * cfg.lambda_up, max=cfg.lambda_max))
-        cam = _sel(accept, cam_new, cam)
-        pts = _sel(accept, pts_new, pts)
-        cost = torch.where(done, cost, torch.where(accept, cost_new, cost_lin))
-        k = torch.where(done, k, k + 1)
-        done_next = done | newly_done | (lam >= cfg.lambda_max)
-        lam = torch.where(done, lam, lam_next)
-        done = done_next
-    return BAResult(cam=cam, pts=pts, cost=cost, n_iter=k, converged=done)
+            # a window that is done keeps everything: under vmap the JAX loop
+            # runs to the slowest window, and without this latch a converged
+            # window would keep taking steps driven by its batch-mates
+            accept = ok & (cost_new < cost_lin) & ~done
+            rel_decrease = (cost_lin - cost_new) / torch.clamp(cost_lin, min=1e-12)
+            # a small decrease signals convergence only when damping is not
+            # inflated (an accepted but heavily damped step is just a short step)
+            newly_done = accept & (rel_decrease < cfg.ftol) & (lam <= cfg.lambda0)
+            lam_next = torch.where(accept, torch.clamp(lam * cfg.lambda_down, min=cfg.lambda_min),
+                                   torch.clamp(lam * cfg.lambda_up, max=cfg.lambda_max))
+            cam = _sel(accept, cam_new, cam)
+            pts = _sel(accept, pts_new, pts)
+            cost = torch.where(done, cost, torch.where(accept, cost_new, cost_lin))
+            k = torch.where(done, k, k + 1)
+            done_next = done | newly_done | (lam >= cfg.lambda_max)
+            lam = torch.where(done, lam, lam_next)
+            done = done_next
+        profiling.count("ba.calls")
+        profiling.count("ba.trips", trips)
+        profiling.count("sync.ba", reads)
+        return BAResult(cam=cam, pts=pts, cost=cost, n_iter=k, converged=done)
 
 
 def gate_tracks(cam, pts, obs, mask, cfg: BAConfig, gate_px: float) -> torch.Tensor:
@@ -321,6 +329,7 @@ def ba_camera_covariances(problem: BAProblem, cfg: BAConfig) -> torch.Tensor:
     # covariances even from degenerate windows
     cov = 0.5 * (cov + cov.transpose(-1, -2))
     eig, vec = torch.linalg.eigh(cov)
+    profiling.count("sync.cov_eigh")  # eigh reads its solver's status back on the host
     eig = torch.clamp(eig, 0.0, 1e4)
     cov = torch.matmul(vec * eig[..., None, :], vec.transpose(-1, -2))
     return cov * free[:, None, None]

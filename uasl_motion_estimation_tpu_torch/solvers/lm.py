@@ -18,6 +18,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils import profiling
+
 
 class StopCondition(enum.IntEnum):
     """Same set as the reference's StopCondition (rotation_utils.h:20)."""
@@ -108,10 +110,13 @@ def lm_solve(
     k = torch.zeros(batch, dtype=torch.int32, device=dev)
     eye = torch.eye(k_dim, dtype=dtype, device=dev)
 
+    trips = reads = 0
     for _ in range(cfg.max_iter):
         active = (stop == NO_STOP) & (k < cfg.max_iter)
+        reads += 1
         if not bool(active.any()):
             break
+        trips += 1
         JJ, Jr, cost_b = normal_eq_fn(x)
         stop_b = stop
         if cfg.minimize:
@@ -151,6 +156,9 @@ def lm_solve(
     _, _, final_cost = normal_eq_fn(x)
     success = ((stop != int(StopCondition.NO_CONVERGENCE))
                & (stop != int(StopCondition.MAX_ITERATIONS)))
+    profiling.count("lm.calls")
+    profiling.count("lm.trips", trips)
+    profiling.count("sync.lm", reads)
     return LMResult(x=x, cost=final_cost, stop=stop, n_iter=k, success=success)
 
 
@@ -195,4 +203,6 @@ def _lm_inner(JJ, Jr, cost, x, mu, v, stop, active, eye, update, eval_cost,
         stop = torch.where(live, new_stop, stop)
         done = done | done_next
         inner_k += 1
+    profiling.count("lm.inner_trips", inner_k)
+    profiling.count("sync.lm_inner", inner_k + 1)  # the loop leaves through its read
     return x, mu, v, stop
