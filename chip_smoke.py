@@ -10,8 +10,13 @@
    MI joint histogram K2 to 1e-5 absolute in both its modes (its counts are
    exact integers; only the final float32 sum rounds, in another order than
    the plain version's): pair mode (the scale LM) with sentinel ids, strip
-   mode (the MI matcher) at 13 x 500 features x 128 disparities; and K2 of
-   identical patches to their entropy within 1e-4.
+   mode (the MI matcher) at 13 x 500 features x 128 disparities; K2 of
+   identical patches to their entropy within 1e-4; and windowed BA's K3
+   (kernels A and B) at config 4's 16 windows, with the LM's damping and
+   with the covariances' regularisation, as close to the float64 chain as
+   the float32 plain chain within ``BA_GAP_X`` (config 2's first BA group
+   too, in the north-star phase, where every BA solve and covariance call
+   must have launched K3: twice a trip, once a call).
 4. Checks three small worlds against the port's CPU run (plain kernel
    versions) given the same RANSAC samples: stereo VO, the cross-modal
    metric-scale session, and the integrated VO+BA engine (2 windows).
@@ -525,6 +530,12 @@ BA4_COST_RTOL, BA4_CAM_TOL = 1e-4, 1e-4
 # 5th, while the card's batch accepts it and stops after 4; the costs agree
 # within 3e-7 relative either way
 BA4_ITER_GAP = 1
+# K3 (kernels A and B) against the plain chain: its gap from the float64
+# chain may be this many times the float32 chain's, plus this share of the
+# output's largest entry (both sum the same float32 terms in other orders;
+# measured on an H100: at most 2.2 times)
+BA_GAP_X, BA_GAP_FLOOR = 4.0, 1e-6
+BA_CELL = (907, 10, 256)  # kitti-ba-windows: windows, frames, points
 # The covariance check (cov_circuit.py:141-200): the unified engine at its
 # defaults (4 windows a group) on the 40-frame corrupted world of
 # benchmarks/full_system.py, RANSAC seed 1, as that block runs it
@@ -581,14 +592,16 @@ def build_kernels() -> None:
     """One nvcc per kernel source, all started together; prints each
     build's time and its -Xptxas -v report."""
     from uasl_motion_estimation_tpu_torch.ops.kernels import _build
+    from uasl_motion_estimation_tpu_torch.ops.kernels import ba_schur as kba
     from uasl_motion_estimation_tpu_torch.ops.kernels import gather as kg
     from uasl_motion_estimation_tpu_torch.ops.kernels import mi as kmi
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(_build.build_library, (kg.SOURCE, kmi.SOURCE)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        libs = list(pool.map(_build.build_library, (kg.SOURCE, kmi.SOURCE, kba.SOURCE)))
     kg.GATHER.load()
     kmi.MI.load()
+    kba.BA_SCHUR.load()
     print(f"built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print(open(f"{lib}.log").read().strip())
@@ -689,6 +702,144 @@ def check_mi(dev) -> tuple[float, float]:
         raise AssertionError(f"K2 of identical patches: {worst} from plain, {ent_err} from "
                              f"their entropy")
     return worst, ent_err
+
+
+def hold_ba_schur(problem, cfg, name: str, v_eps: float = 0.0) -> dict:
+    """K3's kernels A and B against the plain chain of ``solvers/ba.py`` on
+    ``problem`` (its cameras and points as they are), both held to the
+    float64 chain: each output's largest gap, relative to its largest entry,
+    may be ``BA_GAP_X`` times the float32 chain's plus ``BA_GAP_FLOOR``.
+    The solve's damping (lam 1e-4), or with ``v_eps`` the covariances' (lam
+    0, V + v_eps I); B takes the float64 solve's update. Returns each
+    output's (kernel, plain) gaps."""
+    from uasl_motion_estimation_tpu_torch.ops.kernels import ba_schur as kba
+    from uasl_motion_estimation_tpu_torch.solvers import ba as tba
+
+    p32 = tba.BAProblem(*(t.contiguous() for t in problem))
+    p64 = tba.BAProblem(p32.cam.double(), p32.pts.double(), p32.obs.double(), p32.mask)
+    lam = torch.full(p32.cam.shape[:-2], 0.0 if v_eps else 1e-4, device=p32.cam.device)
+    valid = torch.sum(p32.mask.float(), -2) >= 2
+    mf = p32.mask.float()
+    kw = dict(intr=cfg.intr, baseline=cfg.baseline, huber_delta=cfg.huber_delta)
+    ka = kba.reduce(*p32, lam, None, valid, n_fixed=cfg.n_fixed, v_eps=v_eps, **kw)
+    pa = tba._reduce_plain(*p32[:3], mf, lam, valid, cfg, v_eps)
+    ra = tba._reduce_plain(*p64[:3], mf.double(), lam.double(), valid, cfg, v_eps)
+    dcam = torch.linalg.solve(ra[0], ra[1][..., None]).reshape(p64.cam.shape)
+    kb = kba.step(*p32, dcam.float().contiguous(), ka[3], None, valid,
+                  zlim=tba._depth_limits(cfg), **kw)
+    pb = tba._step_plain(*p32[:3], mf, dcam.float(), pa[3], valid, cfg)
+    rb = tba._step_plain(*p64[:3], mf.double(), dcam, ra[3], valid, cfg)
+    torch.cuda.synchronize()
+
+    def gap(x, ref):
+        ref = ref.double()
+        return float((x.double() - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+    vinv = ka[3][..., :9].reshape(*ka[3].shape[:-1], 3, 3)
+    outputs = {"S": (ka[0], pa[0], ra[0]), "rhs": (ka[1], pa[1], ra[1]),
+               "cost": (ka[2], pa[2], ra[2]), "V^-1": (vinv, pa[3][0], ra[3][0]),
+               "bp": (ka[3][..., 9:], pa[3][2], ra[3][2]), "pts_new": (kb[1], pb[1], rb[1]),
+               "cost_new": (kb[2], pb[2], rb[2])}
+    gaps = {k: (gap(a, r), gap(b, r)) for k, (a, b, r) in outputs.items()}
+    bad = {k: g for k, g in gaps.items() if not g[0] <= BA_GAP_X * g[1] + BA_GAP_FLOOR}
+    if bad or not (torch.equal(kb[0], pb[0]) and bool(kb[3].all())):
+        raise AssertionError(f"K3 off the plain chain at {name}: {bad or gaps}")
+    print(f"K3 vs plain at {name} ({tuple(p32.obs.shape)}): gaps from the float64 chain, kernel "
+          f"/ plain: " + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in gaps.items()),
+          flush=True)
+    return gaps
+
+
+def time_ba_schur(dev, card) -> dict:
+    """K3 at cell kitti-ba-windows' shape (``BA_CELL``: config 4's windows
+    at the KITTI rig, drawn with seeds 0-906, every window active, warm):
+    kernels A and B, the dense solve between them (cuSOLVER's backend, as
+    ``ba_solve`` runs it) and the plain chain's reduction and step, each by
+    CUDA events. The bound of A and B together: the iteration's bytes (the
+    observations, masks, points and cameras in once; S, its right-hand side
+    and the points out) at 3.35 TB/s, and its FP32 FMAs at 33.5 T a second,
+    counting each window's (6W)^2 x 3M Schur product alone."""
+    from uasl_motion_estimation_tpu_torch.ops.geometry import Intrinsics
+    from uasl_motion_estimation_tpu_torch.ops.kernels import ba_schur as kba
+    from uasl_motion_estimation_tpu_torch.solvers import ba as tba
+    from uasl_motion_estimation_tpu_torch.utils import synthetic
+
+    n, frames, points = BA_CELL
+    rig = synthetic.CameraRig()
+    intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
+    wins = [synthetic.ba_window(intr, rig.baseline, n_frames=frames, n_pts=points,
+                                noise=BA4_NOISE, seed=w, image_shape=(rig.height, rig.width))
+            for w in range(n)]
+    wins = [(*synthetic.perturb_ba_window(c, p, seed=w + 100), o, m)
+            for w, (c, p, o, m) in enumerate(wins)]
+    prob = tba.BAProblem(*(torch.from_numpy(np.stack(x)).to(dev) for x in zip(*wins)))
+    cfg = tba.BAConfig(intr=intr, baseline=rig.baseline)
+    lam = torch.full((n,), cfg.lambda0, device=dev)
+    valid = torch.sum(prob.mask.float(), -2) >= 2
+    kw = dict(intr=intr, baseline=cfg.baseline, huber_delta=cfg.huber_delta)
+    S, rhs, _, aux = kba.reduce(*prob, lam, None, valid, n_fixed=cfg.n_fixed, **kw)
+    dcam = tba._solve(S, rhs)[0].reshape(prob.cam.shape).contiguous()
+    mf = prob.mask.float()
+    plain_aux = tba._reduce_plain(*prob[:3], mf, lam, valid, cfg)[3]
+    zlim = tba._depth_limits(cfg)
+    ms = {"A": time_ms(lambda: kba.reduce(*prob, lam, None, valid, n_fixed=cfg.n_fixed, **kw),
+                       reps=20),
+          "B": time_ms(lambda: kba.step(*prob, dcam, aux, None, valid, zlim=zlim, **kw), reps=20),
+          "solve": time_ms(lambda: tba._solve(S, rhs), reps=20),
+          "plain_reduce": time_ms(lambda: tba._reduce_plain(*prob[:3], mf, lam, valid, cfg),
+                                  reps=5),
+          "plain_step": time_ms(lambda: tba._step_plain(*prob[:3], mf, dcam, plain_aux, valid,
+                                                        cfg), reps=5)}
+    n6 = 6 * frames
+    nbytes = (n * frames * points * (4 * 4 + 1) + n * points * (3 * 4 + 1) + n * frames * 6 * 4
+              + n * (n6 * n6 + n6) * 4 + n * points * 3 * 4)
+    fmas = n * n6 * n6 * 3 * points
+    bound = max(nbytes / 3.35e12, fmas / 33.5e12) * 1e3
+    out = {**ms, "bytes": nbytes, "fmas": fmas, "bound_ms": bound,
+           "bound_by": "FP32 FMAs" if fmas / 33.5e12 >= nbytes / 3.35e12 else "bytes",
+           "share": bound / (ms["A"] + ms["B"])}
+    print(f"K3 at {n} windows x {frames} frames x {points} points: A {ms['A']:.4f} ms, B "
+          f"{ms['B']:.4f} ms, the solve between {ms['solve']:.4f} ms; plain chain reduction "
+          f"{ms['plain_reduce']:.3f} ms, step {ms['plain_step']:.3f} ms; bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB, {fmas / 1e9:.3f} G FMAs; by {out['bound_by']}), A + B at "
+          f"{100 * out['share']:.1f} %; card {card}", flush=True)
+    return out
+
+
+class BAHeld:
+    """Counts the BA solves and covariance calls a run makes through
+    ``models/smoother.py``, keeps the first solve's problem, and checks on
+    leaving that K3 launched twice for every trip of every solve (kernels A
+    and B) and once for every covariance call (kernel A)."""
+
+    def __enter__(self):
+        from uasl_motion_estimation_tpu_torch.models import smoother as sm
+        from uasl_motion_estimation_tpu_torch.ops.kernels import ba_schur as kba
+
+        self.sm, self.kba = sm, kba
+        self.orig = sm.ba_solve, sm.ba_camera_covariances
+        self.expected, self.problem, self.start = 0, None, kba.BA_SCHUR.launches
+
+        def solve(problem, cfg):
+            res = self.orig[0](problem, cfg)
+            if self.problem is None:
+                self.problem = (problem, cfg)
+            self.expected += 2 * int(res.n_iter.max())  # its trips
+            return res
+
+        def covariances(problem, cfg):
+            self.expected += 1
+            return self.orig[1](problem, cfg)
+
+        sm.ba_solve, sm.ba_camera_covariances = solve, covariances
+        return self
+
+    def __exit__(self, kind, *_):
+        self.sm.ba_solve, self.sm.ba_camera_covariances = self.orig
+        self.launches = self.kba.BA_SCHUR.launches - self.start
+        if kind is None and not self.launches == self.expected > 0:
+            raise AssertionError(f"K3 launched {self.launches} times; the solves' trips and "
+                                 f"the covariance calls want {self.expected}")
 
 
 def time_ms(fn, reps=50) -> float:
@@ -3148,13 +3299,16 @@ def config2_euroc(dev, card, held) -> dict:
             strip_calls = [c for c in shim.calls if (c[2], c[3]) == EUROC_STRIP]
         staged.append({"seed": seed, "ate_m": float(metrics.ate_rmse(traj[:, :3, 3], gt)),
                        "success": sum(bool(r["success"]) for r in log.records)})
-        res, _ = held(f"config 2 integrated seed {seed}",
-                      lambda: euroc_unified(frames, cfg, seed, dev))
+        with BAHeld() as k3:
+            res, _ = held(f"config 2 integrated seed {seed}",
+                          lambda: euroc_unified(frames, cfg, seed, dev))
+        if seed == EUROC_SEEDS[0]:  # its first group's BA problem, at its start
+            out["k3_gaps"] = hold_ba_schur(*k3.problem, "config 2's first BA group")
         ate_vo, ate_ba = unified_ates(res, gt)
         unified.append({"seed": seed, "ate_vo_m": ate_vo, "ate_ba_m": ate_ba,
                         "vo_success": int((res.per_frame[:, 16] > 0.5).sum()),
                         "ba_converged": int(res.ba_converged.sum()),
-                        "windows": len(res.ba_converged)})
+                        "windows": len(res.ba_converged), "k3_launches": k3.launches})
     med = {"staged_ate_m": float(np.median([r["ate_m"] for r in staged])),
            "unified_ate_vo_m": float(np.median([r["ate_vo_m"] for r in unified])),
            "unified_ate_ba_m": float(np.median([r["ate_ba_m"] for r in unified]))}
@@ -3165,7 +3319,9 @@ def config2_euroc(dev, card, held) -> dict:
           f"{[r['success'] for r in staged]}/{EUROC_FRAMES - 1}; integrated ATE VO "
           f"{[round(r['ate_vo_m'], 5) for r in unified]} m, after BA "
           f"{[round(r['ate_ba_m'], 5) for r in unified]} m, windows converged "
-          f"{[r['ba_converged'] for r in unified]}/{unified[0]['windows']}; medians staged "
+          f"{[r['ba_converged'] for r in unified]}/{unified[0]['windows']}, K3 launches "
+          f"{[r['k3_launches'] for r in unified]} (2 a BA trip, 1 a covariance call); medians "
+          f"staged "
           f"{med['staged_ate_m']:.5f} (JAX {jax_med['staged_ate_m']:.5f}), VO "
           f"{med['unified_ate_vo_m']:.5f} (JAX {jax_med['unified_ate_vo_m']:.5f}), BA "
           f"{med['unified_ate_ba_m']:.5f} m (JAX {jax_med['unified_ate_ba_m']:.5f}; JAX r05 at "
@@ -3282,9 +3438,13 @@ def config4_ba(dev, card) -> dict:
     LM iteration for the whole batch), and windows/s (median of 3 after it)."""
     from uasl_motion_estimation_tpu_torch.solvers.ba import BAProblem, ba_solve
 
+    from uasl_motion_estimation_tpu_torch.ops.kernels import ba_schur as kba
+
     arrays, bcfg = ba4_problem()
     prob = BAProblem(*(torch.from_numpy(a).to(dev) for a in arrays))
+    before = kba.BA_SCHUR.launches
     res = ba_solve(prob, bcfg)
+    k3_launches = kba.BA_SCHUR.launches - before
     cost = res.cost.cpu().numpy()
     cam = res.cam.cpu().numpy()
     n_iter = res.n_iter.cpu().numpy()
@@ -3299,16 +3459,18 @@ def config4_ba(dev, card) -> dict:
            "n_iter_gap": int(np.abs(n_iter - jiter).max()),
            "n_iter_differ": np.nonzero(n_iter != jiter)[0].tolist(), "converged": conv.tolist(),
            "syncs": count_syncs(lambda: ba_solve(prob, bcfg)),
-           "windows_s": BA4_WINDOWS / float(np.median(times)), "run_s": times}
+           "windows_s": BA4_WINDOWS / float(np.median(times)), "run_s": times,
+           "k3_launches": k3_launches}
     print(f"config 4 (16 windows x 10 frames x 256 points, one batch): mean cost "
           f"{out['mean_cost']:.6f} (JAX {JAX_BA4['mean_cost']:.6f}, r05 0.3819), per window "
           f"cost within {out['cost_rel_err']:.3g} relative and cameras within "
           f"{out['cam_err']:.3g} of JAX's, iterations {out['n_iter']} (JAX "
           f"{JAX_BA4['n_iter']}; differ at windows {out['n_iter_differ']}), converged "
           f"{int(conv.sum())}/{BA4_WINDOWS}; {out['syncs']} "
-          f"stream syncs per solve; {out['windows_s']:.2f} windows/s (median of {times}); card "
-          f"{card}", flush=True)
+          f"stream syncs per solve; {out['windows_s']:.2f} windows/s (median of {times}); K3 "
+          f"{k3_launches} launches (2 a trip); card {card}", flush=True)
     if not (out["cost_rel_err"] <= BA4_COST_RTOL and out["cam_err"] <= BA4_CAM_TOL
+            and k3_launches == 2 * int(n_iter.max())
             and out["converged"] == JAX_BA4["converged"] and out["n_iter_gap"] <= BA4_ITER_GAP
             and out["syncs"] <= int(n_iter.max()) + 1):
         raise AssertionError(f"config 4 off JAX's per-window solve: {out}")
@@ -3324,13 +3486,15 @@ def covariance_calibration(dev, card, world, held) -> dict:
     from uasl_motion_estimation_tpu_torch.models.smoother import run_unified_system
 
     seq, frames, cfg = world
-    res, _ = held("covariance run", lambda: run_unified_system(
-        frames, cfg, seed=COV_SEED, wchunk=COV_WCHUNK, device=dev))
+    with BAHeld() as k3:
+        res, _ = held("covariance run", lambda: run_unified_system(
+            frames, cfg, seed=COV_SEED, wchunk=COV_WCHUNK, device=dev))
     fig = covariance_figures(res, seq.poses)
     print(f"covariances (cov_circuit.py, corrupted 40-frame world, seed {COV_SEED}): "
           + ", ".join(f"{k} {v:.6g} (JAX {JAX_COV[k]:.6g})" for k, v in fig.items()
                       if k in JAX_COV)
-          + f"; every pose covariance after the first positive: {fig['pose_cov_positive']} "
+          + f"; every pose covariance after the first positive: {fig['pose_cov_positive']}; "
+          f"K3 {k3.launches} launches "
           f"(JAX r05: 89.7 % within 3 sigma, growth 2145x); card {card}", flush=True)
     if not (fig["pose_cov_positive"] and fig["pose_cov_growth_x"] > 1.0
             and fig["err_within_3sigma_frac"] >= JAX_COV["err_within_3sigma_frac"]
@@ -3339,7 +3503,7 @@ def covariance_calibration(dev, card, world, held) -> dict:
             and fig["median_motion_t_sigma_m"] >= JAX_COV["median_motion_t_sigma_m"]
             / COV_SIGMA_X):
         raise AssertionError(f"covariances off JAX's calibration: {fig}")
-    return fig
+    return {**fig, "k3_launches": k3.launches}
 
 
 def north_star_configs(dev, card, cov_world) -> dict:
@@ -3419,6 +3583,11 @@ def main() -> int:
     print(f"K2 vs plain at the matcher and scale shapes, sentinels 20/25/31/400, P 81/121, "
           f"bins 20/32: max abs err {k2_err:.3g} (tolerance {K2_TOL}); identical patches "
           f"vs their entropy: {ent_err:.3g} (tolerance {ENTROPY_TOL})")
+    ba4_arrays, ba4_cfg = ba4_problem()
+    ba4 = tuple(torch.from_numpy(a).to(dev) for a in ba4_arrays)
+    hold_ba_schur(ba4, ba4_cfg, "config 4's start (LM damping)")
+    hold_ba_schur(ba4, ba4_cfg, "config 4's start (the covariances' regularisation)", v_eps=1e-9)
+    k3_times = time_ba_schur(dev, card)
 
     small_err = small_world_agrees(dev)
     print(f"small stereo world: card vs CPU max motion difference {small_err:.3g}")
@@ -3730,6 +3899,23 @@ def main() -> int:
         },
         "timings": {name: {key: r[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
                                                    "bound_by")} for name, r in tm.items()},
+    }, {
+        "name": "ba_schur",
+        "route": "cuda",
+        "source": "uasl_motion_estimation_tpu_torch/csrc/ba_schur.cu",
+        "replaces": None,
+        "launches_by_path": {
+            "config4_ba": north["config4"]["k3_launches"],
+            "config2_integrated": [r["k3_launches"] for r in north["config2"]["unified"]],
+            "covariance_run": north["covariances"]["k3_launches"]},
+        "shape": list(BA_CELL),
+        "ms": k3_times["A"] + k3_times["B"],
+        "ms_by_kernel": {"A": k3_times["A"], "B": k3_times["B"]},
+        "solve_ms": k3_times["solve"],
+        "plain_ms": k3_times["plain_reduce"] + k3_times["plain_step"],
+        "bound_ms": k3_times["bound_ms"],
+        "bound_by": k3_times["bound_by"],
+        "share": k3_times["share"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))

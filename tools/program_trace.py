@@ -8,7 +8,9 @@ one pass, then runs ``--passes`` passes back to back under
 ``torch.profiler`` without the benchmark's fenced spans, and prints one
 JSON object: ``profiling.breakdown`` over those passes (per program span:
 calls, host and self seconds, the card's idle seconds while the host was
-in it, launches; ``outside`` every span) and the counters per pass.
+in it, launches; ``outside`` every span) and the counters per pass, with
+``ba.fused / ba.trips`` (1.0 where every BA trip ran in kernel K3) wherever
+BA ran.
 
 - ``--syncs``: two more passes under torch's sync debug mode with the
   recorder on: the first pass's host reads by the line of the port that
@@ -169,8 +171,11 @@ def main(argv=None) -> int:
            "warm_pass_s": time.perf_counter() - t}
     prof, window, wall = traced(passes, activities)
     b = profiling.breakdown(prof, window)
-    b["counters_per_pass"] = {k: v / args.passes for k, v in sorted(b.pop("counters").items())}
+    b["counters_per_pass"] = counters = {k: v / args.passes
+                                         for k, v in sorted(b.pop("counters").items())}
     out.update(wall_s=wall, work_per_pass=eng.work_per_pass, breakdown=b)
+    if counters.get("ba.trips"):
+        out["ba_fused_per_trip"] = counters.get("ba.fused", 0.0) / counters["ba.trips"]
 
     if args.syncs and cuda:
         # the process's first pass in sync debug mode (the benchmark counts

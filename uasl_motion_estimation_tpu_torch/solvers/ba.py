@@ -21,16 +21,26 @@ The Jacobians are analytic: the derivative of the projection, and that of
 pushes through the JAX version), so the tangent at the zero rotation, the
 first camera of every window, is finite. Products run in full float32
 (``device.setup_device`` turns TF32 off), as JAX's ``precision="highest"``.
+
+An LM iteration is a reduction (the damped, gauged reduced camera system,
+its right-hand side and the cost), a dense solve of that system
+(``torch.linalg.solve_ex``) and a step (the points back-substituted and
+clamped, and the new state priced). On a card the reduction and the step are
+kernel K3 (``ops/kernels/ba_schur.py``), which never writes a tensor indexed
+by observation; on the CPU they are the plain chain ``_normal_blocks`` ->
+``_reduce_plain`` -> ``_step_plain``, the kernel's plain version.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 
 from ..ops import geometry as geo
 from ..ops import lie
+from ..ops.kernels import ba_schur as kba
 from ..utils import profiling
 from .lm import _sel
 
@@ -196,49 +206,126 @@ def _reduced_system(U, Vinv, Wc):
     return S, WV
 
 
-def _schur_solve(U, V, Wc, bc, bp, lam, n_fixed: int, pt_valid):
-    """Eliminate the landmarks, solve the damped reduced camera system and
-    back-substitute. ``lam`` (...). Returns (dcam (..., W, 6), dpts
-    (..., M, 3), ok (...)): ok is False where the solve was singular or not
-    finite."""
+def _reduce_plain(cam, pts, obs, mask, lam, pt_valid, cfg: BAConfig, v_eps: float = 0.0):
+    """Plain version of kernel A: the landmarks eliminated from the normal
+    equations damped by ``lam`` (...) (Ceres-style, multiplicatively; each
+    valid point's V also gets ``v_eps`` I) and gauged. Returns (S (..., 6W,
+    6W), rhs (..., 6W), the robust cost (...), what ``_step_plain`` needs)."""
+    U, V, Wc, bc, bp, cost = _normal_blocks(cam, pts, obs, mask, cfg)
     W = Wc.shape[-4]
     eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
     lam4 = lam[..., None, None, None]
-    # multiplicative diagonal damping (Ceres-style)
     Ud = U + lam4 * eye6 * torch.clamp(torch.diagonal(U, dim1=-2, dim2=-1)[..., None], min=1e-6)
     Vd = V + lam4 * eye3 * torch.clamp(torch.diagonal(V, dim1=-2, dim2=-1)[..., None], min=1e-6)
+    if v_eps:
+        Vd = Vd + v_eps * eye3
     # unobserved / invalid points get the identity (their updates are zeroed)
     Vd = torch.where(pt_valid[..., None, None], Vd, eye3)
     Vinv = torch.linalg.inv_ex(Vd)[0]
     S, WV = _reduced_system(Ud, Vinv, Wc)
     rhs = bc - torch.einsum("...wmik,...mk->...wi", WV, bp)
-    S, free = _gauge(S, n_fixed)
+    S, free = _gauge(S, cfg.n_fixed)
     rhs = rhs * free[:, None]
     batch = S.shape[:-4]
-    dcam, info = torch.linalg.solve_ex(S.reshape(*batch, W * 6, W * 6),
-                                       rhs.reshape(*batch, W * 6, 1))
-    dcam = dcam.reshape(*batch, W, 6)
+    return (S.reshape(*batch, W * 6, W * 6), rhs.reshape(*batch, W * 6), cost,
+            (Vinv, Wc, bp))
+
+
+def _step_plain(cam, pts, obs, mask, dcam, aux, pt_valid, cfg: BAConfig):
+    """Plain version of kernel B: back-substitute the points for the cameras'
+    update ``dcam`` (..., W, 6), clamp their depths and price the new state.
+    Returns (cam_new, pts_new, cost_new, finite (...)): finite is False where
+    the update is not."""
+    Vinv, Wc, bp = aux
     dpts = torch.einsum("...mij,...mj->...mi", Vinv,
                         bp - torch.einsum("...wmij,...wi->...mj", Wc, dcam))
     dpts = dpts * pt_valid[..., None]
-    ok = ((info == 0) & torch.all(torch.isfinite(dcam), dim=(-2, -1))
-          & torch.all(torch.isfinite(dpts), dim=(-2, -1)))
-    return dcam, dpts, ok
+    finite = (torch.all(torch.isfinite(dcam), dim=(-2, -1))
+              & torch.all(torch.isfinite(dpts), dim=(-2, -1)))
+    cam_new = cam + dcam
+    pts_new = _clamp_depth(cam_new, pts + dpts, cfg)
+    return cam_new, pts_new, _robust_cost(_residuals(cam_new, pts_new, obs, cfg), mask,
+                                          cfg.huber_delta), finite
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether K3 runs for ``t``: anything off the CPU goes to the kernels,
+    which raise on what they do not take."""
+    return t.device.type != "cpu"
+
+
+def _reduce(cam, pts, obs, mask, lam, done, pt_valid, cfg: BAConfig, v_eps: float = 0.0,
+            want_aux: bool = True):
+    """Kernel A on a card, ``_reduce_plain`` on the CPU; ``mask`` is bool."""
+    if not _on_card(cam):
+        return _reduce_plain(cam, pts, obs, mask.to(cam.dtype), lam, pt_valid, cfg, v_eps)
+    return kba.reduce(cam, pts, obs, mask, lam, done, pt_valid, intr=cfg.intr,
+                      baseline=cfg.baseline, huber_delta=cfg.huber_delta, n_fixed=cfg.n_fixed,
+                      v_eps=v_eps, want_aux=want_aux)
+
+
+def _step(cam, pts, obs, mask, dcam, aux, done, pt_valid, cfg: BAConfig):
+    """Kernel B on a card, ``_step_plain`` on the CPU; ``mask`` is bool."""
+    if not _on_card(cam):
+        return _step_plain(cam, pts, obs, mask.to(cam.dtype), dcam, aux, pt_valid, cfg)
+    return kba.step(cam, pts, obs, mask, dcam, aux, done, pt_valid, intr=cfg.intr,
+                    baseline=cfg.baseline, huber_delta=cfg.huber_delta,
+                    zlim=_depth_limits(cfg))
+
+
+@contextlib.contextmanager
+def _cusolver():
+    """PyTorch's dense LU on cuSOLVER's backend, which takes cuBLAS's batched
+    getrf and getrs for a batch of these sizes. Its default backend takes
+    MAGMA's batched LU above 16 systems: on an H100, three times the device
+    time and four times the wall time of a 907-window solve (PERF.md §6)."""
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def _solve(S: torch.Tensor, rhs: torch.Tensor):
+    """``torch.linalg.solve_ex`` of S (..., n, n) x = rhs (..., n): (x, info).
+    On a card on cuSOLVER's backend, a lone system solved in a batch of two
+    with the identity: every system then takes cuBLAS's batched LU, so its
+    solution does not depend on the batch around it."""
+    if not _on_card(S):
+        return torch.linalg.solve_ex(S, rhs[..., None])
+    n, lead = S.shape[-1], S.shape[:-2]
+    S3, r3 = S.reshape(-1, n, n), rhs.reshape(-1, n, 1)
+    k = S3.shape[0]
+    if k == 1:
+        S3 = torch.cat([S3, torch.eye(n, dtype=S.dtype, device=S.device)[None]])
+        r3 = torch.cat([r3, torch.zeros_like(r3)])
+    with _cusolver():
+        x, info = torch.linalg.solve_ex(S3, r3)
+    return x[:k].reshape(*lead, n), info[:k].reshape(lead)
+
+
+def _depth_limits(cfg: BAConfig) -> tuple[float, float] | None:
+    """(zmin, zmax) of the first camera's depths (BundleAdjuster.h:442-443);
+    None for mono problems, which are not clamped."""
+    if cfg.baseline <= 0:
+        return None
+    fB = cfg.intr.fu * cfg.baseline
+    zmax = cfg.zmax_depth if cfg.zmax_depth > 0 else fB / 0.1
+    return max(cfg.zmin_frac * fB, fB / (2.0 * cfg.intr.cu)), zmax
 
 
 def _clamp_depth(cam, pts, cfg: BAConfig) -> torch.Tensor:
     """Clamp depth in the first camera to [zmin, zmax]
-    (BundleAdjuster.h:442-443, 455-459); mono problems are left as they are."""
-    if cfg.baseline <= 0:
+    (BundleAdjuster.h:455-459); mono problems are left as they are."""
+    zlim = _depth_limits(cfg)
+    if zlim is None:
         return pts
-    fB = cfg.intr.fu * cfg.baseline
-    zmax = cfg.zmax_depth if cfg.zmax_depth > 0 else fB / 0.1
-    zmin = max(cfg.zmin_frac * fB, fB / (2.0 * cfg.intr.cu))
     R0 = lie.so3_exp(cam[..., 0, :3])  # (..., 3, 3)
     t0 = cam[..., None, 0, 3:6]
     pc = torch.matmul(pts, R0.transpose(-1, -2)) + t0
-    pc = torch.cat([pc[..., :2], torch.clamp(pc[..., 2:], zmin, zmax)], dim=-1)
+    pc = torch.cat([pc[..., :2], torch.clamp(pc[..., 2:], *zlim)], dim=-1)
     return torch.matmul(pc - t0, R0)
 
 
@@ -246,13 +333,14 @@ def ba_solve(problem: BAProblem, cfg: BAConfig) -> BAResult:
     """Run windowed BA to convergence (optimise(), BundleAdjuster.h:432-476)
     for every problem of the batch."""
     with profiling.span("ba.solve"):
-        cam0, obs = problem.cam, problem.obs
-        mask = problem.mask.to(cam0.dtype)
-        pt_valid = torch.sum(mask, dim=-2) >= 2.0  # (..., M): >= 2 views
+        cam0, pts0 = problem.cam.contiguous(), problem.pts.contiguous()
+        obs, mask = problem.obs.contiguous(), problem.mask.contiguous()
+        maskf = mask.to(cam0.dtype)
+        pt_valid = torch.sum(maskf, dim=-2) >= 2.0  # (..., M): >= 2 views
         batch = cam0.shape[:-2]
 
-        cam, pts = cam0, problem.pts
-        cost = _robust_cost(_residuals(cam, pts, obs, cfg), mask, cfg.huber_delta)
+        cam, pts = cam0, pts0
+        cost = _robust_cost(_residuals(cam, pts, obs, cfg), maskf, cfg.huber_delta)
         lam = torch.full(batch, cfg.lambda0, dtype=cam0.dtype, device=cam0.device)
         k = torch.zeros(batch, dtype=torch.int32, device=cam0.device)
         done = torch.zeros(batch, dtype=torch.bool, device=cam0.device)
@@ -263,12 +351,12 @@ def ba_solve(problem: BAProblem, cfg: BAConfig) -> BAResult:
             if bool(done.all()):
                 break
             trips += 1
-            U, V, Wc, bc, bp, cost_lin = _normal_blocks(cam, pts, obs, mask, cfg)
-            dcam, dpts, ok = _schur_solve(U, V, Wc, bc, bp, lam, cfg.n_fixed, pt_valid)
-            cam_new = cam + dcam
-            pts_new = _clamp_depth(cam_new, pts + dpts, cfg)
-            cost_new = _robust_cost(_residuals(cam_new, pts_new, obs, cfg), mask,
-                                    cfg.huber_delta)
+            S, rhs, cost_lin, aux = _reduce(cam, pts, obs, mask, lam, done, pt_valid, cfg)
+            dcam, info = _solve(S, rhs)
+            cam_new, pts_new, cost_new, finite = _step(
+                cam, pts, obs, mask, dcam.reshape(cam.shape).contiguous(), aux, done, pt_valid,
+                cfg)
+            ok = (info == 0) & finite
 
             # a window that is done keeps everything: under vmap the JAX loop
             # runs to the slowest window, and without this latch a converged
@@ -289,6 +377,8 @@ def ba_solve(problem: BAProblem, cfg: BAConfig) -> BAResult:
             done = done_next
         profiling.count("ba.calls")
         profiling.count("ba.trips", trips)
+        if _on_card(cam0):  # every trip's reduction and step ran in K3
+            profiling.count("ba.fused", trips)
         profiling.count("sync.ba", reads)
         return BAResult(cam=cam, pts=pts, cost=cost, n_iter=k, converged=done)
 
@@ -308,22 +398,23 @@ def ba_camera_covariances(problem: BAProblem, cfg: BAConfig) -> torch.Tensor:
     """Per-camera 6x6 covariances (..., W, 6, 6) from the inverse of the
     reduced camera system (extract_covariance, BundleAdjuster.h:478-528).
     Call after ``ba_solve``; the fixed (gauge) frames get zero covariance."""
-    mask = problem.mask.to(problem.cam.dtype)
-    pt_valid = torch.sum(mask, dim=-2) >= 2.0
-    U, V, Wc, _, _, _ = _normal_blocks(problem.cam, problem.pts, problem.obs, mask, cfg)
-    W = U.shape[-3]
-    eye3 = torch.eye(3, dtype=V.dtype, device=V.device)
-    Vd = torch.where(pt_valid[..., None, None], V + 1e-9 * eye3, eye3)
-    S, _ = _reduced_system(U, torch.linalg.inv_ex(Vd)[0], Wc)
-    S, free = _gauge(S, cfg.n_fixed)
-    batch = S.shape[:-4]
-    Sf = S.reshape(*batch, W * 6, W * 6)
+    cam = problem.cam.contiguous()
+    mask = problem.mask.contiguous()
+    pt_valid = torch.sum(mask.to(cam.dtype), dim=-2) >= 2.0
+    lam = torch.zeros(cam.shape[:-2], dtype=cam.dtype, device=cam.device)
+    # undamped, with V regularised by 1e-9 I
+    Sf = _reduce(cam, problem.pts.contiguous(), problem.obs.contiguous(), mask, lam, None,
+                 pt_valid, cfg, v_eps=1e-9, want_aux=False)[0]
+    W = cam.shape[-2]
+    batch = Sf.shape[:-2]
+    free = (torch.arange(W, device=cam.device) >= cfg.n_fixed).to(cam.dtype)
     # relative Tikhonov: a frame with almost no surviving observations makes
     # S near-singular and its float32 inverse indefinite
     diag = torch.diagonal(Sf, dim1=-2, dim2=-1)
     eps = 1e-6 * torch.clamp(torch.mean(torch.abs(diag), dim=-1), min=1.0)
-    Sf = Sf + eps[..., None, None] * torch.eye(W * 6, dtype=U.dtype, device=U.device)
-    Sinv = torch.linalg.inv_ex(Sf)[0].reshape(*batch, W, 6, W, 6)
+    Sf = Sf + eps[..., None, None] * torch.eye(W * 6, dtype=cam.dtype, device=cam.device)
+    with _cusolver() if _on_card(Sf) else contextlib.nullcontext():
+        Sinv = torch.linalg.inv_ex(Sf)[0].reshape(*batch, W, 6, W, 6)
     cov = torch.diagonal(Sinv, dim1=-4, dim2=-2).movedim(-1, -3)  # (..., W, 6, 6)
     # symmetrize and clip the eigenvalues to [0, 1e4]: consumers need valid
     # covariances even from degenerate windows
