@@ -5,10 +5,10 @@ Traffic parameters: ``windows``, ``frames`` (cameras a window),
 BA test window (``world.render_torch.ba_window``) drawn with seed w at the
 configuration's intrinsics, baseline and image, and started from its
 perturbation with seed w + 100 (``perturb_ba_window``), as the published
-config 4 draws its 16; the run's seed sets the order of the windows in the
-batch. Every seed so solves the same set (a batch iterates until its
-slowest window is done, so windows drawn anew each seed would change the
-work). The batch is uploaded in set-up. The comparison judges one pass
+config 4 draws its 16 (``ba_windows`` builds them all at once); the run's
+seed sets the order of the windows in the batch. Every seed so solves the
+same set (a batch iterates until its slowest window is done, so windows
+drawn anew each seed would change the work). The batch is uploaded in set-up. The comparison judges one pass
 against the reference's float64 optimum of the same windows from the same
 start:
 
@@ -28,7 +28,7 @@ from ..reference import ba as rba
 from ..reference import geometry as g
 from ..reference.prec import F64, TF32, Prec
 from ..spans import Capture, patch
-from ..world.render_torch import ba_window, perturb_ba_window
+from ..world.render_torch import ba_windows
 from . import common
 
 
@@ -43,13 +43,9 @@ class Engine:
         n = traffic["windows"]
         order = np.random.default_rng(common.seeds(seed, 1)[0]).permutation(n)
         intr = Intrinsics(rig.fu, rig.fv, rig.cu, rig.cv)
-        windows = []
-        for w in order.tolist():
-            cams, pts, obs, mask = ba_window(intr, rig.baseline, n_frames=traffic["frames"],
-                                             n_pts=traffic["points"], noise=traffic["noise_px"],
-                                             seed=w, image_shape=(rig.height, rig.width))
-            windows.append((*perturb_ba_window(cams, pts, seed=w + 100), obs, mask))
-        arrays = [torch.from_numpy(np.stack(x)).to(device) for x in zip(*windows)]
+        windows = ba_windows(intr, rig.baseline, order.tolist(), traffic["frames"], traffic["points"],
+                             traffic["noise_px"], (rig.height, rig.width))
+        arrays = [torch.from_numpy(x).to(device) for x in windows]
         self.problem = ba.BAProblem(*arrays)
         self.start = [a.cpu() if device == "cpu" else a for a in arrays]
         bc = config["ba"]
@@ -57,9 +53,10 @@ class Engine:
                                max_iter=bc["max_iter"], huber_delta=bc["huber_delta"])
         self.device = device
         self.work_per_pass = n
-        self.capture = Capture()
+        self.capture = Capture(seed)
         self._undo = [patch(ba, "ba_solve", self.capture.wrap(
-            "res", lambda r: (r.cam, r.pts, r.cost, r.converged, r.n_iter)))]
+            "res", lambda r: (r.cam, r.pts, r.cost, r.converged, r.n_iter),
+            lambda r: (r.converged, r.n_iter)))]
         self.SPANS = []
         self.K1 = None
 
@@ -70,11 +67,11 @@ class Engine:
 
     def failed(self) -> int:
         """Windows that did not converge over the window's passes."""
-        return sum(int((~p["res"][0][3]).sum()) for p in self.capture.passes)
+        return sum(int((~c).sum()) for c in self.capture.tallied("res"))
 
     def lm_iters(self) -> list:
-        """The largest LM iteration count of each captured solve."""
-        return [int(p["res"][0][4].max()) for p in self.capture.passes]
+        """The largest LM iteration count of each solve of every pass."""
+        return [int(n.max()) for n in self.capture.tallied("res", 1)]
 
     def release(self) -> None:
         for u in self._undo:

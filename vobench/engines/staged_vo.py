@@ -46,11 +46,11 @@ class Engine:
                                         seed=s_ransac, device=device)
         self.chunk = traffic["chunk"]
         self.work_per_pass = traffic["frames"] - 1
-        self.capture = Capture()
+        self.capture = Capture(seed)
         self._undo = [
             patch(fe, "quad_match_frames", self.capture.wrap("qm", lambda q: (q.uv, q.valid))),
             patch(pl, "stereo_vo_solve", self.capture.wrap(
-                "vo", lambda r: (r.motion, r.success, r.inlier_mask))),
+                "vo", lambda r: (r.motion, r.success, r.inlier_mask), lambda r: (r.success,))),
         ]
         self.SPANS = [(fe, "quad_match_frames", "frontend"), (pl, "stereo_vo_solve", "solve")]
         self.K1 = (im, "gather_tiles")
@@ -58,12 +58,12 @@ class Engine:
     def run_pass(self) -> None:
         self.pipe.reset()
         traj = self.pipe.run_staged(self.world.ls, self.world.rs, chunk=self.chunk)
-        if self.capture.on and self.capture.passes:
-            self.capture.passes[-1]["traj"] = traj
+        if self.capture.on and self.capture.full is not None:
+            self.capture.full["traj"] = traj
 
     def failed(self) -> int:
         """Steps the program failed over the window's passes."""
-        return sum(int((~torch.cat([v[1] for v in p["vo"]])).sum()) for p in self.capture.passes)
+        return sum(int((~s).sum()) for s in self.capture.tallied("vo"))
 
     def lm_iters(self) -> list:
         return []

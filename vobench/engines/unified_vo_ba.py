@@ -72,14 +72,14 @@ class Engine:
         self.starts = sm.unified_window_starts(n, self.cfg.window, self.cfg.ba_rate)
         self.work_per_pass = k * (n - 1)
         self.windows_per_pass = k * len(self.starts)
-        self.capture = cap = Capture()
+        self.capture = cap = Capture(seed)
         self._undo = [
             patch(sm, "_build_window_tracks", cap.wrap("tracks")),
             patch(sm, "_group_vo", cap.wrap(
                 "vo", lambda r: (r[0].motion, r[0].success, r[0].inlier_mask, r[1]))),
             patch(sm, "_group_ba", cap.wrap(
                 "ba", lambda r: (r[0].cam, r[0].pts, r[0].mask, r[1].cam, r[1].pts,
-                                 r[1].cost, r[1].converged))),
+                                 r[1].cost, r[1].converged), lambda r: (r[1].converged,))),
             patch(sm, "_group_covariances", cap.wrap("cov", lambda r: (r[1], r[2]))),
         ]
         self.SPANS = [(sm, "_build_window_tracks", "tracks"), (sm, "_group_vo", "solve"),
@@ -87,7 +87,7 @@ class Engine:
         self.K1 = (im, "gather_tiles")
 
     def run_pass(self) -> None:
-        cur = self.capture.passes[-1] if self.capture.on and self.capture.passes else None
+        cur = self.capture.full if self.capture.on else None
         for world in self.worlds:
             out = self.sm.unified_system_scan(world.ls, world.rs, self.sampler, self.cfg,
                                               wchunk=self.wchunk)
@@ -99,8 +99,7 @@ class Engine:
 
     def failed(self) -> int:
         """Windows whose BA did not converge over the window's passes."""
-        return sum(int((~torch.cat([b[6] for b in f["ba"]])).sum())
-                   for p in self.capture.passes for f in p["flights"])
+        return sum(int((~c).sum()) for c in self.capture.tallied("ba"))
 
     def lm_iters(self) -> list:
         return []

@@ -16,7 +16,8 @@ have passed; the rate is the work of every completed pass over the time
 from the window's start to the last pass's end. With ``--trace 1`` it
 instead counts one pass's stream syncs, then traces ``trace_passes`` passes
 with the benchmark's spans and reports the per-layer metrics. Either way it
-then judges a pass drawn from the seed against the plain reference.
+then judges one pass drawn from the seed (``spans.Capture``, the only pass
+whose outputs it keeps whole) against the plain reference.
 """
 
 from __future__ import annotations
@@ -78,10 +79,6 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def pass_rng(seed: int) -> np.random.Generator:
-    return np.random.default_rng(np.random.SeedSequence(seed, spawn_key=(7,)))
-
-
 def rate(n_passes: int, work_per_pass: int, span_s: float) -> float:
     """Work of every completed pass over the whole span it took."""
     return n_passes * work_per_pass / span_s
@@ -122,13 +119,19 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, traced: bool,
                   f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
                   f"device_count() {torch.cuda.device_count()}", file=sys.stderr)
             raise SystemExit(3)
-    eng_mod = importlib.import_module(f"vobench.engines.{traffic['engine']}")
-    eng = eng_mod.Engine(config, traffic, seed, device, small or {})
     cuda = device != "cpu"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    marks = [("imports and the device", time.perf_counter())]
+    eng_mod = importlib.import_module(f"vobench.engines.{traffic['engine']}")
+    eng = eng_mod.Engine(config, traffic, seed, device, small or {})
+    sync()
+    marks.append(("the program and its inputs", time.perf_counter()))
     eng.capture.on = False
     eng.run_pass()  # warms every shape the window uses
     sync()
+    marks.append(("the warm pass", time.perf_counter()))
+    print("setup: " + ", ".join(f"{name} {b - a:.3f} s" for (name, b), (_, a)
+                                in zip(marks, [("", t0)] + marks)), file=sys.stderr)
     ctx_syncs = None
     if traced and cuda:
         from . import spans
@@ -164,10 +167,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, traced: bool,
     failed = eng.failed()
     eng.release()
 
-    k = int(pass_rng(seed).integers(n_passes))
-    numbers = eng.judge(eng.capture.passes[k])
+    numbers = eng.judge(eng.capture.judged)
     correct, checks = judge(numbers, limits)
-    for line in eng.sanity(eng.capture.passes[k]):
+    for line in eng.sanity(eng.capture.judged):
         print(line, file=sys.stderr)
 
     e2e = {m["name"]: m for m in bench["end_to_end"]}

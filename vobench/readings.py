@@ -42,7 +42,7 @@ def main() -> None:
             torch.cuda.synchronize()
         eng.release()
         t_prog = time.perf_counter() - t
-        cap = eng.capture.passes[0]
+        cap = eng.capture.judged
         t = time.perf_counter()
         rec = {"workload": args.workload, "seed": seed, "program": eng.judge(cap)}
         rec["judge_s"] = time.perf_counter() - t

@@ -4,8 +4,8 @@ functions, installed from here and only for the run that needs them.
 - ``patch(module, name, wrapper)`` replaces ``module.name`` and returns an
   undo; the port's callers look the name up at call time, so they reach
   the wrapper.
-- ``Capture`` keeps what a wrapped function returned during the current
-  pass (the comparison judges it after the window).
+- ``Capture`` keeps what wrapped functions returned in the one pass the
+  comparison will judge, and a small tally of every pass.
 - ``fenced_span`` times a call as a profiler range between two device
   synchronisations (traced runs only).
 - ``count_syncs`` counts stream synchronisations with torch's sync debug
@@ -18,6 +18,7 @@ import functools
 import warnings
 from typing import Callable
 
+import numpy as np
 import torch
 
 
@@ -28,25 +29,59 @@ def patch(module, name: str, make: Callable[[Callable], Callable]) -> Callable[[
     return lambda: setattr(module, name, original)
 
 
-class Capture:
-    """Per-pass lists of what wrapped functions returned."""
+def pass_rng(seed: int) -> np.random.Generator:
+    """The draws that pick the judged pass, from the run's seed."""
+    return np.random.default_rng(np.random.SeedSequence(seed, spawn_key=(7,)))
 
-    def __init__(self):
-        self.passes: list[dict] = []
+
+class Capture:
+    """What wrapped functions returned, kept for after the window.
+
+    One pass is kept whole: the one the comparison judges, drawn uniformly
+    among the passes started with ``start_pass`` by a reservoir pick of one
+    from ``pass_rng(seed)`` (the count is known only when the window
+    closes). The pick is made as a pass starts, so a pass that will not be
+    judged keeps nothing whole, and the one kept before it is dropped as
+    the new one starts. From every pass, each wrapper's ``tally`` (the flags
+    and counts the engine reads over all passes) is kept as tensors of their
+    own: a view would keep its whole storage alive. Nothing here reads the
+    device."""
+
+    def __init__(self, seed: int):
+        self.rng = pass_rng(seed)
         self.on = True
+        self.n = 0  # passes started
+        self.judged: dict | None = None  # the whole capture of the judged pass
+        self.judged_index: int | None = None
+        self.tallies: list[dict] = []  # per pass, {key: [tuple of tensors]}
+        self.full: dict | None = None  # the running pass's capture, where it is the judged one
 
     def start_pass(self) -> None:
-        self.passes.append({})
+        self.full = None
+        if self.rng.integers(self.n + 1) == 0:
+            self.judged = self.full = {}
+            self.judged_index = self.n
+        self.tallies.append({})
+        self.n += 1
 
-    def wrap(self, key: str, pick: Callable | None = None) -> Callable[[Callable], Callable]:
+    def wrap(self, key: str, pick: Callable | None = None,
+             tally: Callable | None = None) -> Callable[[Callable], Callable]:
         def make(fn):
             def wrapper(*args, **kwargs):
                 out = fn(*args, **kwargs)
-                if self.on and self.passes:
-                    self.passes[-1].setdefault(key, []).append(pick(out) if pick else out)
+                if self.on and self.tallies:
+                    if self.full is not None:
+                        self.full.setdefault(key, []).append(pick(out) if pick else out)
+                    if tally is not None:
+                        self.tallies[-1].setdefault(key, []).append(
+                            tuple(t.clone() for t in tally(out)))
                 return out
             return wrapper
         return make
+
+    def tallied(self, key: str, k: int = 0) -> list:
+        """Item ``k`` of every tally under ``key``, over every pass."""
+        return [t[k] for p in self.tallies for t in p.get(key, [])]
 
 
 def fenced_span(name: str) -> Callable[[Callable], Callable]:

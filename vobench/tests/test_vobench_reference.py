@@ -58,7 +58,7 @@ def test_control_fails(workload):
     eng.capture.start_pass()
     eng.run_pass()
     eng.release()
-    ok, checks = harness.judge(eng.control(eng.capture.passes[0]), limits)
+    ok, checks = harness.judge(eng.control(eng.capture.judged), limits)
     assert not ok, checks
 
 

@@ -55,6 +55,18 @@ def test_ba_window_copies_equal_the_port(seed):
         np.testing.assert_array_equal(a, b)
 
 
+def test_batched_ba_windows_equal_one_at_a_time():
+    intr = Intrinsics(718.856, 718.856, 607.19, 185.22)
+    seeds = [11, 3, 4531]
+    batch = rt.ba_windows(intr, 0.5372, seeds, 10, 256, 0.3, (376, 1241))
+    for j, s in enumerate(seeds):
+        cams, pts, obs, mask = rt.ba_window(intr, 0.5372, n_frames=10, n_pts=256, noise=0.3,
+                                            seed=s, image_shape=(376, 1241))
+        one = (*rt.perturb_ba_window(cams, pts, seed=s + 100), obs, mask)
+        for a, b in zip(batch, one):
+            np.testing.assert_array_equal(a[j], b)
+
+
 def test_so3_exp_copy_equals_the_port():
     from uasl_motion_estimation_tpu_torch.ops import lie
 

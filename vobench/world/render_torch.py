@@ -224,3 +224,41 @@ def perturb_ba_window(cams: np.ndarray, pts: np.ndarray, cam_scale: float = 0.01
     cams_p[2:] += rng.normal(scale=cam_scale, size=cams_p[2:].shape)
     pts_p = pts + rng.normal(scale=pt_scale, size=pts.shape)
     return cams_p.astype(np.float32), pts_p.astype(np.float32)
+
+
+def ba_windows(intr, baseline: float, seeds: list[int], n_frames: int, n_pts: int, noise: float,
+               image_shape: tuple[int, int]):
+    """For each seed s, ``ba_window(seed=s)`` started from
+    ``perturb_ba_window(seed=s + 100)``, stacked: (start cams
+    (K, n_frames, 6), start points (K, n_pts, 3), obs, mask). The same
+    draws and the same float32 arithmetic, with the projections of every
+    window made at once: only the seeded draws stay one window at a time."""
+    k, w, m = len(seeds), n_frames, n_pts
+    i = np.arange(w)[:, None]
+    cams = np.concatenate([i * [0.002, 0.004, 0.001], i * [0.05, 0.02, -0.8]], 1).astype(np.float32)
+    pts = np.empty((k, m, 3), np.float32)
+    obs_noise, cam_noise, pt_noise = np.empty((k, w, m, 4)), np.empty((k, w - 2, 6)), np.empty((k, m, 3))
+    for j, s in enumerate(seeds):
+        rng = np.random.default_rng(s)
+        pts[j] = np.stack([rng.uniform(-8, 8, m), rng.uniform(-3, 3, m), rng.uniform(8, 30, m)], -1)
+        obs_noise[j] = rng.normal(scale=noise, size=(w, m, 4))
+        rng = np.random.default_rng(s + 100)
+        cam_noise[j] = rng.normal(scale=0.01, size=(w - 2, 6))
+        pt_noise[j] = rng.normal(scale=0.3, size=(m, 3))
+    obs = np.zeros((k, w, m, 4), np.float32)
+    mask = np.zeros((k, w, m), bool)
+    rot = so3_exp_f32(torch.from_numpy(cams[:, :3])).numpy()
+    flat = pts.reshape(-1, 3)
+    for f, cam in enumerate(cams):
+        pc = flat @ rot[f].T + cam[3:6]
+        z = pc[:, 2]
+        ul = intr.fu * pc[:, 0] / z + intr.cu
+        v = intr.fv * pc[:, 1] / z + intr.cv
+        ur = intr.fu * (pc[:, 0] - baseline) / z + intr.cu
+        obs[:, f] = np.stack([ul, v, ur, v], -1).reshape(k, m, 4)
+        mask[:, f] = ((z > 1.0) & (ul > 0) & (ul < image_shape[1]) & (v > 0)
+                      & (v < image_shape[0])).reshape(k, m)
+    obs += obs_noise
+    cams_p = np.repeat(cams[None], k, 0)
+    cams_p[:, 2:] += cam_noise
+    return cams_p, (pts + pt_noise).astype(np.float32), obs, mask
